@@ -1,0 +1,81 @@
+"""u64 range proof, verifier side, batched — the flagship entry point.
+
+Counterpart of the verifier half of `bppp_tpu/protocol/u64.py`. Fixed
+instantiation of the reciprocal protocol: base 16, 16 hex digits;
+g_vec = 16, h_vec = 26 circuit + 6 WNLA padding = 32. A proof is 13 group
+elements + 3 scalars per value.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import curve as dc
+from ..ops.curve import PointJ
+from ..ops.fixed_base import DEFAULT_W, build_tables
+from ..transcript.device import Transcript
+from . import points as pv
+from .reciprocal import ReciprocalProofBytes, ReciprocalRangeProofDevice
+
+G_VEC_FULL_SZ = 16
+H_VEC_CIRCUIT_SZ = 26
+H_VEC_FULL_SZ = 32
+DIM_ND = 16
+DIM_NP = 16
+
+
+class U64RangeProofDevice:
+    """g: PointJ (16, *batch); g_vec: (16, 16, *batch); h_vec:
+    (16, 32, *batch); tables: optional fixed-base window tables from
+    `build_u64_tables` — {'full': the 49-point set [g | h_vec | g_vec]
+    for the WNLA final MSM, 'gv': the [g | g_vec] subset for the circuit
+    layer's MSM}."""
+
+    def __init__(self, g: PointJ, g_vec: PointJ, h_vec: PointJ, tables=None):
+        assert pv.pv_len(g_vec) == G_VEC_FULL_SZ
+        assert pv.pv_len(h_vec) == H_VEC_FULL_SZ
+        self.g, self.g_vec, self.h_vec = g, g_vec, h_vec
+        self.tables = tables
+
+    @property
+    def batch(self):
+        return tuple(self.g.x.shape[1:])
+
+    def _reciprocal(self) -> ReciprocalRangeProofDevice:
+        empty = dc.identity((0,) + self.batch, device=self.g.x.device)
+        return ReciprocalRangeProofDevice(
+            dim_nd=DIM_ND,
+            dim_np=DIM_NP,
+            g=self.g,
+            g_vec=self.g_vec,
+            h_vec=PointJ(*(a[:, :H_VEC_CIRCUIT_SZ] for a in self.h_vec)),
+            g_vec_=empty,
+            h_vec_=PointJ(*(a[:, H_VEC_CIRCUIT_SZ:] for a in self.h_vec)),
+            tables=self.tables,
+        )
+
+    def verify(
+        self,
+        commitment_bytes,
+        t: Transcript,
+        proof: ReciprocalProofBytes,
+        fast: bool = False,
+    ):
+        """commitment_bytes: (33, *batch) SEC1 bytes of the value
+        commitment -> (*batch,) bool accept mask. fast=True runs the
+        collapsed one-MSM verifier (same transcript, same accept/reject
+        set as the mirror verifier, which a later slice ports)."""
+        return self._reciprocal().verify(commitment_bytes, t, proof, fast=fast)
+
+
+def build_u64_tables(g: PointJ, g_vec: PointJ, h_vec: PointJ, w_bits: int = DEFAULT_W):
+    """Fixed-base window tables for a u64 generator set. Inputs are the
+    UNBATCHED points (coords (16,) / (16, L)). -> dict for
+    U64RangeProofDevice(tables=...)."""
+    pts = PointJ(
+        *(torch.cat([a[:, None], b, c], dim=1) for a, b, c in zip(g, h_vec, g_vec))
+    )  # [g | h(32) | g_vec(16)] -> (16, 49)
+    tab = build_tables(pts, w_bits)
+    # the circuit MSM's subset [g | g_vec] slices the generator axis
+    gv = tab.take([0] + list(range(1 + H_VEC_FULL_SZ, 1 + H_VEC_FULL_SZ + G_VEC_FULL_SZ)))
+    return {"full": tab, "gv": gv}

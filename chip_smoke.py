@@ -1,0 +1,555 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # all phases, needs one card
+    python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --profile  # where one verify batch spends its time
+
+Builds the CUDA kernels of `bppp_tpu_torch/csrc/` from source, holds each
+kernel against its plain PyTorch version on the card (exact equality),
+then drives the port's main path — batched u64 range-proof verification
+through `U64RangeProofDevice.verify(fast=True)` at a batch of 1024 — and
+checks the accept mask lane for lane, that every kernel was launched on
+that path and that no plain version was. Every phase prints one JSON
+line; any mismatch or exception ends the run with a non-zero exit code.
+There is no CPU route: without a CUDA device the script fails.
+
+Bounds (`bound_ms`) are the least time the card could take for the same
+work: bytes moved (each input read once, each output written once) over
+3.35e12 B/s, or 32-bit integer operations over 33.5e12 op/s — NVIDIA's
+H100 SXM data sheet gives 67 TFLOP/s for fp32 outside the tensor cores,
+and the SM has half as many int32 lanes as fp32 lanes; a multiply-add
+counts as two operations. Work that depends on the data (zero digits add
+nothing) is counted from this run's inputs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from bppp_tpu_torch.models import u64_fixture
+from bppp_tpu_torch.ops import _build
+from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_msm
+from bppp_tpu_torch.ops import curve as dc
+from bppp_tpu_torch.ops import field as f
+from bppp_tpu_torch.ops import glv
+from bppp_tpu_torch.oracle import curve as oc
+from bppp_tpu_torch.oracle.field import N as N_INT
+from bppp_tpu_torch.oracle.field import P as P_INT
+from bppp_tpu_torch.oracle.merlin import Transcript as HostTranscript
+from bppp_tpu_torch.protocol import convert as cv
+from bppp_tpu_torch.transcript.device import Transcript
+
+LABEL = b"u64 range proof"
+SEED = "chip smoke"
+BATCH = 1024
+BIG_BATCH = 16384
+PLAIN_B = 64  # lanes the slow plain versions run on (sliced from the same inputs)
+
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 33.5e12
+# 32-bit multiply-adds in one modular multiply of csrc/field.cuh: the 8 x 8
+# schoolbook product plus the folds (p: 8 + 1; n: 40 + 25 + 5 + 5)
+MAD_MUL_P = 64 + 9
+MAD_MUL_N = 64 + 75
+MULS_ADD, MULS_MIXED, MULS_DBL = 16, 11, 7
+
+COUNTERS = (cuda_keccak, cuda_msm, cuda_fixed_base, cuda_curve)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def reset_counts() -> None:
+    for mod in COUNTERS:
+        for d in (mod.LAUNCHES, mod.PLAIN_CALLS):
+            for k in d:
+                d[k] = 0
+
+
+def read_counts():
+    launches, plain = {}, {}
+    for mod in COUNTERS:
+        launches.update(mod.LAUNCHES)
+        plain.update(mod.PLAIN_CALLS)
+    return launches, plain
+
+
+def time_ms(fn, reps: int = 5, warm: int = 1) -> float:
+    """Median time of `fn()` in milliseconds, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def bound(nbytes: float, ops: float):
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def max_err(a, b) -> int:
+    a = [a] if isinstance(a, torch.Tensor) else list(a)
+    b = [b] if isinstance(b, torch.Tensor) else list(b)
+    assert len(a) == len(b)
+    worst = 0
+    for x, y in zip(a, b):
+        assert x.shape == y.shape, (x.shape, y.shape)
+        if x.numel():
+            worst = max(worst, int((x.to(torch.int64) - y.to(torch.int64)).abs().max()))
+    return worst
+
+
+def rand_scalars(gen, shape, modulus: int, dev):
+    """Uniform values below `modulus` as (16, *shape) limb tensors."""
+    n = int(np.prod(shape))
+    raw = gen.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
+    vals = f.limbs_to_ints(raw)
+    limbs = f.ints_to_limbs([v % modulus for v in vals])
+    return torch.from_numpy(limbs).reshape((16,) + tuple(shape)).to(dev)
+
+
+def rand_points(gen, shape, dev):
+    """Random non-identity points in random Jacobian representations,
+    coords (16, *shape): multiples of the generator made on the card."""
+    n = int(np.prod(shape))
+    base = [oc.GENERATOR.mul(int(gen.integers(1, 1 << 62))) for _ in range(8)]
+    pts = dc.from_int_points(base, device=dev)  # (16, 8)
+    idx = torch.from_numpy(gen.integers(0, 8, size=n)).to(dev)
+    p = dc.PointJ(*(c[:, idx] for c in pts))
+    # spread them: P <- 2P + base[j], a few rounds with fresh j
+    for _ in range(3):
+        j = torch.from_numpy(gen.integers(0, 8, size=n)).to(dev)
+        p = dc.pt_add(dc.pt_double(p), dc.PointJ(*(c[:, j] for c in pts)))
+    return dc.PointJ(*(c.reshape((16,) + tuple(shape)) for c in p))
+
+
+# -- phase: kernels ---------------------------------------------------------------
+
+
+def check_keccak(gen, dev, B):
+    st = torch.from_numpy(gen.integers(0, 256, size=(200, B))).to(dev)
+    st[:, 0] = 0
+    got = cuda_keccak.f1600(st)
+    want = cuda_keccak.f1600_plain(st)
+    err = max_err(got, want)
+    ms = time_ms(lambda: cuda_keccak.f1600(st))
+    plain_ms = time_ms(lambda: cuda_keccak.f1600_plain(st), reps=3)
+    # per round about 216 64-bit logic operations = 432 32-bit ones
+    b_ms, by = bound(2 * 200 * 4 * B, 24 * 432 * B)
+    return dict(name="f1600", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+                bound_ms=b_ms, bound_by=by, shape=[200, B], compared="bytes")
+
+
+def check_pow(gen, dev, B):
+    out = []
+    for tag, e, kind, mod in (
+        ("fp_inv", P_INT - 2, "p", P_INT),
+        ("fp_sqrt", (P_INT + 1) // 4, "p", P_INT),
+        ("fn_inv", N_INT - 2, "n", N_INT),
+    ):
+        x = rand_scalars(gen, (B,), mod, dev)
+        x[:, 0] = 0  # 0 -> 0
+        x[:, 1] = 0
+        x[0, 1] = 1
+        got = cuda_msm.pow_const(x, e, kind)
+        want = cuda_msm.pow_const_plain(x[:, :PLAIN_B], e, kind)
+        err = max_err(got[:, :PLAIN_B], want)
+        assert int(got[:, 0].abs().sum()) == 0, "pow(0) must be 0"
+        ms = time_ms(lambda: cuda_msm.pow_const(x, e, kind))
+        plain_ms = time_ms(lambda: cuda_msm.pow_const_plain(x[:, :PLAIN_B], e, kind), reps=1, warm=0)
+        digits = cuda_msm._pow_digits(e)
+        muls = 14 + 5 * (len(digits) - 1)
+        mad = MAD_MUL_P if kind == "p" else MAD_MUL_N
+        b_ms, by = bound(2 * 16 * 4 * B, 2 * mad * muls * B)
+        out.append(dict(name=f"pow_const[{tag}]", err=err, ms=ms, plain_ms=plain_ms,
+                        plain_B=PLAIN_B, bound_ms=b_ms, bound_by=by, shape=[16, B],
+                        compared="limbs"))
+    return out
+
+
+def check_curve(gen, dev, B):
+    p = rand_points(gen, (B,), dev)
+    q = rand_points(gen, (B,), dev)
+    idl = dc.identity((B,), device=dev)
+    lane = torch.arange(B, device=dev)
+    # lanes 0..3: doubling collision, inverse collision, p identity, q identity
+    q = dc.pt_select(lane == 0, p, q)
+    q = dc.pt_select(lane == 1, dc.pt_neg(p), q)
+    p = dc.pt_select(lane == 2, idl, p)
+    q = dc.pt_select(lane == 3, idl, q)
+    p = dc.pt_select(lane == 4, idl, p)
+    q = dc.pt_select(lane == 4, idl, q)
+    got = cuda_curve.pt_add(*p, *q)
+    want = cuda_curve.pt_add_plain(*p, *q)
+    err = max_err(got, want)
+    ms = time_ms(lambda: cuda_curve.pt_add(*p, *q))
+    plain_ms = time_ms(lambda: cuda_curve.pt_add_plain(*p, *q), reps=3)
+    live = int((~(dc.pt_is_identity(p) | dc.pt_is_identity(q))).sum())
+    b_ms, by = bound(9 * 16 * 4 * B, 2 * MAD_MUL_P * MULS_ADD * live)
+    add = dict(name="pt_add", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+               bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+    got = cuda_curve.pt_double(*p)
+    want = cuda_curve.pt_double_plain(*p)
+    err = max_err(got, want)
+    ms = time_ms(lambda: cuda_curve.pt_double(*p))
+    plain_ms = time_ms(lambda: cuda_curve.pt_double_plain(*p), reps=3)
+    b_ms, by = bound(6 * 16 * 4 * B, 2 * MAD_MUL_P * MULS_DBL * B)
+    dbl = dict(name="pt_double", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+               bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+    return [add, dbl]
+
+
+def check_fixed(gen, dev, B, tables, tag):
+    F = tables.n_points
+    sc = rand_scalars(gen, (F, B), N_INT, dev)
+    sc[:, :, 0] = 0  # all-zero scalars: the identity
+    sc[:, 1:, 1] = 0  # one live generator
+    got = dc.PointJ(*cuda_fixed_base.fixed_msm(tables, sc))
+    want = dc.PointJ(*cuda_fixed_base.fixed_msm_plain(tables, sc[:, :, :PLAIN_B]))
+    err = max_err(dc.compress(got)[:, :PLAIN_B], dc.compress(want))
+    assert bool(dc.pt_is_identity(got)[0]), "zero scalars must give the identity"
+    ms = time_ms(lambda: cuda_fixed_base.fixed_msm(tables, sc))
+    plain_ms = time_ms(lambda: cuda_fixed_base.fixed_msm_plain(tables, sc[:, :, :PLAIN_B]),
+                       reps=1, warm=0)
+    live = int((cuda_fixed_base._digits(sc, tables.w_bits) != 0).sum())
+    nbytes = tables.words.numel() * 4 + (16 * F + 3 * 16) * 4 * B
+    b_ms, by = bound(nbytes, 2 * MAD_MUL_P * MULS_MIXED * live)
+    return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=PLAIN_B,
+                bound_ms=b_ms, bound_by=by, shape=[16, F, B], w_bits=tables.w_bits,
+                compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
+
+
+def check_msm_small(gen, dev, B, D):
+    pts = rand_points(gen, (D, B), dev)
+    kk = rand_scalars(gen, (D, B), N_INT, dev)
+    kk[:, :, 0] = 0  # zero scalars
+    idl = dc.identity((D, B), device=dev)
+    lane = torch.arange(B, device=dev)
+    pts = dc.pt_select(lane == 1, idl, pts)  # identity points
+    m1, n1, m2, n2 = glv.decompose(kk)
+    dig = torch.stack([glv.wnaf_digits(m1, n1), glv.wnaf_digits(m2, n2)], dim=2)
+    dig = dig.reshape(glv.GLV_WINDOWS * 2 * D, B)
+    coords = [c.movedim(1, 0).contiguous() for c in pts]  # (D, 16, B)
+    got = dc.PointJ(*cuda_msm.msm_small_wnaf(*coords, dig))
+    small = [c[:, :, :PLAIN_B].contiguous() for c in coords]
+    sdig = dig[:, :PLAIN_B].contiguous()
+    want = dc.PointJ(*cuda_msm.msm_small_wnaf_plain(*small, sdig))
+    err = max_err(dc.compress(got)[:, :PLAIN_B], dc.compress(want))
+    assert bool(dc.pt_is_identity(got)[:2].all()), "zero scalars / identity points"
+    ms = time_ms(lambda: cuda_msm.msm_small_wnaf(*coords, dig))
+    plain_ms = time_ms(lambda: cuda_msm.msm_small_wnaf_plain(*small, sdig), reps=1, warm=0)
+    live = int(((dig & 15) != 0).sum())
+    phi = int(((dig.reshape(glv.GLV_WINDOWS, D, 2, B)[:, :, 1] & 15) != 0).sum())
+    muls = (132 * MULS_DBL + D * (MULS_DBL + 6 * MULS_ADD)) * B + MULS_ADD * live + phi
+    nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
+    b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
+    return dict(name=f"msm_small_wnaf[D={D}]", err=err, ms=ms, plain_ms=plain_ms,
+                plain_B=PLAIN_B, bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
+                compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
+
+
+def phase_kernels(dev, tables, launches=None):
+    """Every kernel against its plain version on the card. `launches`: the
+    main path's counts, reported beside each kernel when given."""
+    gen = np.random.default_rng(2024)
+    launches = launches or {}
+    rows = []
+    # the main path's shapes at a batch of 1024, and a ragged batch that is
+    # no multiple of the block size
+    rows.append(check_keccak(gen, dev, BATCH))
+    rows += check_pow(gen, dev, 14 * BATCH)
+    rows += check_curve(gen, dev, BATCH)
+    rows.append(check_fixed(gen, dev, BATCH, tables["full"], "F=49"))
+    rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
+    rows.append(check_msm_small(gen, dev, BATCH, 2))
+    rows.append(check_msm_small(gen, dev, BATCH, 5))
+    ragged = [check_keccak(gen, dev, 77)]
+    ragged += check_pow(gen, dev, 131)
+    ragged += check_curve(gen, dev, 201)
+    ragged.append(check_fixed(gen, dev, 67, tables["gv"], "F=17"))
+    ragged.append(check_msm_small(gen, dev, 70, 3))
+    for r in ragged:
+        r["name"] += " ragged"
+    rows += ragged
+    torch.cuda.synchronize()
+    bad = [r["name"] for r in rows if r["err"] != 0]
+    emit("kernels", ok=not bad, kernels=[
+        dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
+             kernel_ms=r["ms"], plain_ms=r["plain_ms"], plain_B=r["plain_B"],
+             launches=launches.get(r["name"].split("[")[0].split(" ")[0]),
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], compared=r["compared"])
+        for r in rows])
+    if bad:
+        raise SystemExit(f"kernel disagrees with its plain version: {bad}")
+    return rows
+
+
+# -- phase: verify ------------------------------------------------------------------
+
+
+def make_batch(public, rng, B, dev):
+    """Oracle proofs for four values tiled over B lanes, with a few lanes
+    tampered. -> (commitment bytes, proof, expected mask, oracle report)."""
+    xs = [0, 123456, 0xDEADBEEFCAFEBABE, 2**64 - 1]
+    coms, proofs = [], []
+    for x in xs:
+        s = rng.scalar()
+        com = public.commit_value(x, s)
+        proof = public.prove(x, s, HostTranscript(LABEL), rng)
+        assert public.verify(com, proof, HostTranscript(LABEL)), "oracle rejects its own proof"
+        coms.append(com)
+        proofs.append(proof)
+    pb4 = cv.reciprocal_proofs_to_bytes(proofs, device="cpu")
+    cb4 = torch.from_numpy(cv.point_bytes(coms))
+    reps = -(-B // 4)
+    tile = lambda a: a.repeat((1,) * (a.ndim - 1) + (reps,))[..., :B].contiguous()
+    cb = tile(cb4)
+    r = tile(pb4.r)
+    c_s = tile(pb4.circuit.c_s)
+    wl = tile(pb4.circuit.wnla.l)
+    wn = tile(pb4.circuit.wnla.n)
+    wx = tile(pb4.circuit.wnla.x)
+    want = torch.ones(B, dtype=torch.bool)
+
+    def reject(lane):
+        want[lane] = False
+
+    r[5, 4] ^= 0x40  # a point byte of the poles commitment
+    reject(4)
+    wl[0, 0, 5] = (wl[0, 0, 5] + 1) % (1 << 16)  # the final scalar
+    reject(5)
+    cb[:, 6] = cb4[:, 3]  # wrong commitment (lane 6 holds the proof of xs[2])
+    reject(6)
+    c_s[0, 7] = 7  # bad SEC1 tag
+    reject(7)
+    bad = N_INT + 5  # scalar >= n
+    for i in range(16):
+        wn[i, 0, 8] = (bad >> (16 * i)) & 0xFFFF
+    reject(8)
+    wx[3, 2, 9] ^= 0x11  # middle-round X point
+    reject(9)
+    r[1:, 10] = 0xFF  # x >= p
+    r[0, 10] = 2
+    reject(10)
+
+    # the oracle on the tampered proofs it can represent
+    import copy
+
+    p5 = copy.deepcopy(proofs[5 % 4])
+    p5.circuit_proof.l[0] = (p5.circuit_proof.l[0] + 1) % N_INT
+    oracle = dict(
+        valid=[True] * 4,
+        tampered_scalar=public.verify(coms[5 % 4], p5, HostTranscript(LABEL)),
+        wrong_commitment=public.verify(coms[3], proofs[6 % 4], HostTranscript(LABEL)),
+    )
+    assert oracle["tampered_scalar"] is False and oracle["wrong_commitment"] is False
+
+    circuit = pb4.circuit._replace(
+        c_l=tile(pb4.circuit.c_l), c_r=tile(pb4.circuit.c_r), c_o=tile(pb4.circuit.c_o),
+        c_s=c_s,
+        wnla=pb4.circuit.wnla._replace(r=tile(pb4.circuit.wnla.r), x=wx, l=wl, n=wn),
+    )
+    pb = cv.from_reference(type(pb4)(circuit=circuit, r=r), device=dev)
+    return cb.to(dev), pb, want, oracle
+
+
+def phase_verify(dev):
+    reset_counts()
+    t0 = time.time()
+    public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    cb, pb, want, oracle = make_batch(public, rng, BATCH, dev)
+
+    def run(dobj, cb_, pb_, B):
+        return dobj.verify(cb_, Transcript(LABEL, batch=(B,), device=dev), pb_, fast=True)
+
+    ok = run(device_obj, cb, pb, BATCH)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    got = ok.cpu()
+    assert got.dtype == torch.bool and tuple(got.shape) == (BATCH,)
+    wrong = torch.nonzero(got != want).flatten().tolist()
+    missing = [k for k, n in launches.items() if n == 0]
+    plain_used = {k: n for k, n in plain.items() if n}
+
+    ms_1k = time_ms(lambda: run(device_obj, cb, pb, BATCH), reps=5)
+    reps = BIG_BATCH // BATCH
+    tile = lambda a: a.repeat((1,) * (a.ndim - 1) + (reps,)).contiguous()
+    big_obj = type(device_obj)(
+        g=dc.PointJ(*(tile(c) for c in device_obj.g)),
+        g_vec=dc.PointJ(*(tile(c) for c in device_obj.g_vec)),
+        h_vec=dc.PointJ(*(tile(c) for c in device_obj.h_vec)),
+        tables=device_obj.tables,
+    )
+    cb_big = tile(cb)
+    pb_big = _map_tensors(pb, tile)
+    ok_big = run(big_obj, cb_big, pb_big, BIG_BATCH)
+    torch.cuda.synchronize()
+    big_wrong = int((ok_big.cpu() != want.repeat(reps)).sum())
+    ms_16k = time_ms(lambda: run(big_obj, cb_big, pb_big, BIG_BATCH), reps=3)
+
+    emit(
+        "verify", ok=not wrong and not missing and not plain_used and big_wrong == 0,
+        batch=BATCH, accepted=int(got.sum()), rejected_lanes=torch.nonzero(~got).flatten().tolist(),
+        wrong_lanes=wrong, oracle=oracle, launches=launches, plain_calls=plain_used,
+        fixture_seconds=setup_s,
+        ms_per_batch_1024=ms_1k, verifies_per_s_1024=BATCH / ms_1k * 1e3,
+        ms_per_batch_16384=ms_16k, verifies_per_s_16384=BIG_BATCH / ms_16k * 1e3,
+        wrong_lanes_16384=big_wrong,
+    )
+    if wrong or big_wrong:
+        raise SystemExit(f"accept mask differs from the expected one at lanes {wrong} ({big_wrong} at 16384)")
+    if missing:
+        raise SystemExit(f"kernels never launched on the main path: {missing}")
+    if plain_used:
+        raise SystemExit(f"plain versions ran on the main path: {plain_used}")
+    return launches, device_obj.tables
+
+
+HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
+                "fixed_msm_kernel", "msm_small_wnaf_kernel")
+
+
+def phase_profile(dev):
+    """One verify batch of 1024 under torch.profiler: the device's busy and
+    idle share, the number of launches, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
+    cb, pb, want, _ = make_batch(public, rng, BATCH, dev)
+
+    def run():
+        return device_obj.verify(cb, Transcript(LABEL, batch=(BATCH,), device=dev), pb, fast=True)
+
+    assert run().cpu().tolist() == want.tolist()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        rows.append((e.key, float(us) / 1e3, int(e.count)))
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        emit("profile", ok=False, note="the profiler recorded no device time: not measured",
+             wall_ms=wall_ms)
+        return
+    rows.sort(key=lambda r: -r[1])
+    ours = [r for r in rows if any(k in r[0] for k in HAND_WRITTEN)]
+    emit(
+        "profile", ok=True, batch=BATCH, wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
+        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+        device_launches=sum(r[2] for r in rows), distinct_kernels=len(rows),
+        hand_written_ms=sum(r[1] for r in ours),
+        hand_written=[dict(name=r[0][:90], ms=r[1], launches=r[2]) for r in ours],
+        top=[dict(name=r[0][:90], ms=r[1], launches=r[2]) for r in rows[:12]],
+    )
+
+
+def _map_tensors(obj, fn):
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    return type(obj)(*(_map_tensors(v, fn) for v in obj))
+
+
+# -- main --------------------------------------------------------------------------------
+
+REPLACES = {
+    "f1600": ("bppp_tpu_torch/csrc/keccak.cu", "bppp_tpu/ops/pallas_keccak.py:114"),
+    "pow_const": ("bppp_tpu_torch/csrc/pow.cu", "bppp_tpu/ops/pallas_msm.py:124"),
+    "fixed_msm": ("bppp_tpu_torch/csrc/fixed_msm.cu", "bppp_tpu/ops/pallas_fixed_base.py:249"),
+    "msm_small_wnaf": ("bppp_tpu_torch/csrc/msm_small.cu", "bppp_tpu/ops/pallas_msm.py:689"),
+    "pt_add": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_curve.py:71"),
+    "pt_double": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_curve.py:85"),
+}
+# the row of the kernels phase that stands for each kernel at the main path's shapes
+MAIN_ROW = {
+    "f1600": "f1600", "pow_const": "pow_const[fp_sqrt]", "fixed_msm": "fixed_msm[F=49]",
+    "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add", "pt_double": "pt_double",
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build and the kernel comparison")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one verify batch instead of the smoke phases")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    info = _build.build_all()
+    emit("build", seconds=info["seconds"], built=info["built"], resources=_build.resource_usage(),
+         flags=" ".join(_build.NVCC_FLAGS))
+
+    if args.profile:
+        phase_profile(dev)
+        print(smi, flush=True)
+        return 0
+    if args.kernels_only:
+        public, device_obj, _ = u64_fixture(SEED, 4, device=dev, tables="auto")
+        phase_kernels(dev, device_obj.tables)
+        print(smi, flush=True)
+        return 0
+
+    launches, tables = phase_verify(dev)
+    rows = {r["name"]: r for r in phase_kernels(dev, tables, launches)}
+    kernels = []
+    for name, (source, replaces) in REPLACES.items():
+        r = rows[MAIN_ROW[name]]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=launches[name], max_abs_err=r["err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, shape=r["shape"], plain_B=r["plain_B"],
+        ))
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -113,3 +113,11 @@ def pytest_cmdline_main(config):
             if stop_on_fail:
                 break
     return worst
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "slow: takes many minutes on a CPU (a cold XLA compile of a whole "
+        "protocol program); deselected by -m 'not slow'",
+    )
