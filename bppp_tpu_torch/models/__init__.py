@@ -1,22 +1,28 @@
 """Model-level entry points: ready-made protocol instances.
 
 The system is a proof-system library; its "models" are the protocol
-instantiations a user actually runs. This slice of the port carries the
-batched u64 range-proof verifier and a fixture helper to stand up an
-instance from a seed.
+instantiations a user actually runs. The port carries the batched u64
+range proof — prover and both verifiers — and fixture helpers to stand up
+an instance and a batch of prover inputs from a seed.
 """
 
-from ..protocol.circuit import ArithmeticCircuitDevice
-from ..protocol.reciprocal import ReciprocalRangeProofDevice
+from typing import NamedTuple
+
+from ..protocol.circuit import ArithmeticCircuitDevice, CircuitWitnessDev
+from ..protocol.reciprocal import ReciprocalRangeProofDevice, ReciprocalWitnessDev
 from ..protocol.u64 import U64RangeProofDevice
 from ..protocol.wnla import WNLADevice
 
 __all__ = [
     "ArithmeticCircuitDevice",
+    "CircuitWitnessDev",
+    "ProveBatch",
     "ReciprocalRangeProofDevice",
+    "ReciprocalWitnessDev",
     "U64RangeProofDevice",
     "WNLADevice",
     "u64_fixture",
+    "u64_prove_batch",
 ]
 
 
@@ -69,3 +75,47 @@ def u64_fixture(seed: str, B: int, device="cuda", tables="auto"):
         tables=tables_val,
     )
     return public, dev, rng
+
+
+class ProveBatch(NamedTuple):
+    """What `U64RangeProofDevice.prove` takes for B lanes, and the host
+    values of the distinct lanes it was tiled from."""
+
+    x_words: object  # (2, B) int64: (lo, hi) 32-bit halves of each value
+    s: object  # (16, B) limbs: the commitments' blinding scalars
+    blind: object  # (16, 52, B) limbs: the blinding stream, reference draw order
+    lanes: list  # per distinct lane: dict(x=int, s=int, draws=[52 ints])
+
+
+def u64_prove_batch(rng, xs, B: int, device="cuda") -> ProveBatch:
+    """Prover inputs for B lanes: for every value of `xs`, a blinding
+    scalar s and the 52 blinding draws are taken from `rng` in that order
+    (`utils/rng.py`; an oracle prover fed `ReplayRng(draws)` makes the same
+    proof), and the distinct lanes are tiled over the batch: lane b holds
+    lane b % len(xs)."""
+    import numpy as np
+    import torch
+
+    from ..ops import field as f
+    from ..protocol import convert as cv
+    from ..protocol.u64 import U64_BLIND_DRAWS
+
+    lanes = []
+    for x in xs:
+        if not 0 <= x < (1 << 64):
+            raise ValueError(f"{x} is not a u64 value")
+        s = rng.scalar()
+        lanes.append(dict(x=x, s=s, draws=rng.scalars(U64_BLIND_DRAWS)))
+    words = np.array(
+        [[ln["x"] & 0xFFFFFFFF for ln in lanes], [ln["x"] >> 32 for ln in lanes]],
+        dtype=np.int64,
+    )
+    s_limbs = f.ints_to_limbs([ln["s"] for ln in lanes])  # (16, n)
+    blind = cv.scalar_cols([ln["draws"] for ln in lanes])  # (16, 52, n)
+    reps = -(-B // len(lanes))
+
+    def tile(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.repeat((1,) * (t.ndim - 1) + (reps,))[..., :B].contiguous().to(device)
+
+    return ProveBatch(x_words=tile(words), s=tile(s_limbs), blind=tile(blind), lanes=lanes)

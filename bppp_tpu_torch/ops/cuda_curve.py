@@ -120,7 +120,9 @@ def pt_add_plain(px, py, pz, qx, qy, qz):
 def tree_sum_plain(x, y, z):
     """Pairwise complete-add reduction of axis 1 of (16, L, *batch)
     coordinates, in eager PyTorch on either device; an odd leftover rides
-    along to the next level."""
+    along to the next level. The reduction inside the plain MSMs; NOT the
+    plain version of the tree-sum kernel, which chains incomplete adds
+    (`cuda_ladder.tree_sum_plain`)."""
     while x.shape[1] > 1:
         L = x.shape[1]
         half = L // 2

@@ -54,6 +54,7 @@ class Tables(NamedTuple):
 
     words: torch.Tensor  # (NW, F, 2^W, 16) int32
     w_bits: int
+    subsets: dict  # {tuple of generator indices: Tables}, filled by `subset`
 
     @property
     def n_windows(self) -> int:
@@ -66,7 +67,17 @@ class Tables(NamedTuple):
     def take(self, index) -> "Tables":
         """The tables of a subset of the generators (axis 1)."""
         idx = torch.as_tensor(index, dtype=torch.int64, device=self.words.device)
-        return Tables(self.words.index_select(1, idx).contiguous(), self.w_bits)
+        return Tables(self.words.index_select(1, idx).contiguous(), self.w_bits, {})
+
+    def subset(self, positions: tuple) -> "Tables":
+        """`take(positions)`, built once per distinct tuple and kept with
+        the tables: the prover's call sites each walk a static subset of
+        the generators, and copying table rows per call would cost more
+        than the walk saves."""
+        positions = tuple(positions)
+        if positions not in self.subsets:
+            self.subsets[positions] = self.take(positions)
+        return self.subsets[positions]
 
 
 def n_windows(w_bits: int) -> int:
@@ -109,7 +120,7 @@ def build_tables(points, w_bits: int = DEFAULT_W) -> Tables:
         w = torch.where(w >= (1 << 31), w - (1 << 32), w)  # int32 bit pattern
         return w.to(torch.int32).reshape(8, NW, F, NE).permute(1, 2, 3, 0)
 
-    return Tables(torch.cat([words(ax), words(ay)], dim=3).contiguous(), w_bits)
+    return Tables(torch.cat([words(ax), words(ay)], dim=3).contiguous(), w_bits, {})
 
 
 def table_affine(tab: Tables):

@@ -2,8 +2,8 @@
 signed-window small MSM (K4).
 
 Counterpart of `bppp_tpu/ops/pallas_msm.py` (its `pow_const_flat` and
-`msm_small_wnaf_flat`; the ladder, tree and the two non-default small-MSM
-variants of that file are not ported yet). Wrappers take and return int64
+`msm_small_wnaf_flat`; its ladder and tree are in `ops/cuda_ladder.py`,
+its two non-default small-MSM variants are not ported yet). Wrappers take and return int64
 limb tensors in the interchange layout. On a CUDA tensor a wrapper
 narrows to int32 storage, launches its kernel on the current stream and
 widens the result, without synchronising; on a CPU tensor — and only

@@ -8,12 +8,12 @@ masks. Vectors of points carry the length axis at position 1:
 coordinates (16, L, *batch).
 
 Which code runs is decided by where the tensor lies and by nothing else:
-on a CUDA tensor `pt_add`, `pt_double`, the small MSM, the fixed-window
-exponentiations and Keccak each launch their kernel (or raise); on a CPU
-tensor their plain PyTorch versions run.
+on a CUDA tensor `pt_add`, `pt_double`, `pt_scalar_mul`, `pt_sum`, the
+small MSM, the fixed-window exponentiations and Keccak each launch their
+kernel (or raise); on a CPU tensor their plain PyTorch versions run.
 
-Left to later slices, because they need the ladder and tree kernels:
-`pt_scalar_mul`, `pt_sum`, and `msm` over more than 6 points.
+Left to a later slice: the bucketed Pippenger MSM, and with it the
+question which route `msm` over many points should take on this card.
 """
 
 from __future__ import annotations
@@ -24,12 +24,10 @@ import torch
 
 from ..oracle import curve as oc
 from ..oracle.field import B as B_INT
-from . import cuda_curve
+from . import cuda_curve, cuda_ladder
 from . import field as f
 
-MSM_SMALL_MAX = 6  # `msm` takes at most this many points per lane
-
-_LATER = "later slice (needs the ladder and tree kernels)"
+MSM_SMALL_MAX = 6  # `msm` hands at most this many points per lane to the small-MSM kernel
 
 
 class PointJ(NamedTuple):
@@ -109,29 +107,44 @@ def pt_add(p: PointJ, q: PointJ) -> PointJ:
 
 
 def pt_scalar_mul(p: PointJ, k) -> PointJ:
-    raise NotImplementedError(f"pt_scalar_mul: {_LATER}")
+    """[k]p lane-wise, 4-bit fixed windows (`ops/cuda_ladder.scalar_mul`).
+    k: (16, *batch) canonical F_n limbs; point and scalar broadcast
+    against each other."""
+    return PointJ(*cuda_ladder.scalar_mul(*p, k))
 
 
 def pt_sum(p: PointJ, axis: int = 1) -> PointJ:
-    raise NotImplementedError(f"pt_sum: {_LATER}")
+    """Reduce a points axis (default axis 1 of (16, L, *batch)) to a single
+    point (`ops/cuda_ladder.tree_sum`). The adds are incomplete: identity
+    entries are inert, a collision of two partial sums degrades to the
+    identity."""
+    if axis != 1:
+        p = PointJ(*(c.movedim(axis, 1) for c in p))
+    if p.x.shape[1] == 1:
+        return PointJ(*(c[:, 0] for c in p))
+    return PointJ(*cuda_ladder.tree_sum(*p))
 
 
 def msm(points: PointJ, scalars) -> PointJ:
-    """Multi-scalar multiplication sum_i [s_i] P_i over a few per-proof
-    points: points coords (16, L, *batch), scalars (16, L, *batch) F_n
-    limbs, 1 <= L <= 6. Each scalar is split by the GLV endomorphism
-    (`ops/glv.py`) and recoded to signed 4-bit digits; one shared
-    33-window walk does the rest (`ops/cuda_msm.msm_small_wnaf`). More
-    than `cuda_msm.DMAX` points run as chunks combined with one complete
-    add each."""
+    """Multi-scalar multiplication sum_i [s_i] P_i: points coords
+    (16, L, *batch), scalars (16, L, *batch) F_n limbs, broadcast against
+    each other. Up to `MSM_SMALL_MAX` points per lane — the verifier's
+    per-round folds and commitment chain — take the shared-window kernel:
+    each scalar is split by the GLV endomorphism (`ops/glv.py`) and
+    recoded to signed 4-bit digits, one 33-window walk does the rest
+    (`ops/cuda_msm.msm_small_wnaf`), and more than `cuda_msm.DMAX` points
+    run as chunks combined with one complete add each. More points run as
+    one ladder over all L * batch lanes and one sum over L."""
     from . import cuda_msm, glv
 
     L = points.x.shape[1]
-    if L > MSM_SMALL_MAX:
-        raise NotImplementedError(f"msm over {L} > {MSM_SMALL_MAX} points: {_LATER}")
     if L < 1:
         raise ValueError("msm needs at least one point")
     shape = torch.broadcast_shapes(points.x.shape, scalars.shape)
+    if L > MSM_SMALL_MAX:
+        # the kernels take what they are given: expand shared generators first
+        pts = PointJ(*(c.expand(shape) for c in points))
+        return pt_sum(pt_scalar_mul(pts, scalars.expand(shape)), axis=1)
     batch = tuple(shape[2:])
     prod = 1
     for d in batch:

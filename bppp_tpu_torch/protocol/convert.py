@@ -1,10 +1,12 @@
 """Host <-> device bridges for protocol data, and the bridge between the
 JAX package's arrays and this package's tensors.
 
-Counterpart of `bppp_tpu/protocol/convert.py` (the part the verifier's
-callers need). The host bridges lift oracle Points / python ints into
-limb tensors; wire formats are SEC1 compressed points and 16-limb
-scalars. `from_reference` / `to_reference` carry state across the two
+Counterpart of `bppp_tpu/protocol/convert.py`. The host bridges lift
+oracle Points / python ints into limb tensors and lower results back into
+oracle objects for cross-checks and serialization; wire formats are SEC1
+compressed points and 16-limb scalars. The `*_dev_to_bytes` bridges turn
+a proof the prover made into the verifier's wire form without leaving
+the device. `from_reference` / `to_reference` carry state across the two
 packages: both use the same shapes and axis orders, so only the
 container and the dtype change (uint32 numpy arrays there, int64 tensors
 here). They take and return plain arrays and tuples, so nothing of the
@@ -37,6 +39,16 @@ def scalar_cols(cols: list[list[int]]) -> np.ndarray:
     return out
 
 
+def scalars_lane(arr, b) -> list[int]:
+    """(16, L, B) limbs -> python ints of lane b."""
+    return f.limbs_to_ints(f._np(arr)[:, :, b])
+
+
+def scalar_lane(arr, b) -> int:
+    """(16, B) limbs -> the python int of lane b."""
+    return f.limbs_to_ints(f._np(arr)[:, b : b + 1])[0]
+
+
 # -- points --------------------------------------------------------------
 
 
@@ -50,6 +62,17 @@ def points_batched(pts: list[oc.Point], B: int, device="cuda") -> dc.PointJ:
 
 def point_batched(p: oc.Point, B: int, device="cuda") -> dc.PointJ:
     return dc.from_int_points([p], batch=(B,), squeeze=True, device=device)
+
+
+def point_lane(p: dc.PointJ, b) -> oc.Point:
+    """PointJ coords (16, B) -> oracle Point at lane b."""
+    return oc.Point(*(scalar_lane(a, b) for a in p))
+
+
+def point_vec_lane(p: dc.PointJ, b) -> list[oc.Point]:
+    """PointJ coords (16, L, B) -> oracle Points at lane b."""
+    xs, ys, zs = (scalars_lane(a, b) for a in p)
+    return [oc.Point(x, y, z) for x, y, z in zip(xs, ys, zs)]
 
 
 def compressed_cols(pts_per_lane: list[list[oc.Point]]) -> np.ndarray:
@@ -74,12 +97,46 @@ def point_bytes(pts: list[oc.Point]) -> np.ndarray:
 # -- proofs ----------------------------------------------------------------
 
 
+def wnla_proofs_to_bytes(proofs, device="cuda"):
+    """One oracle WNLAProof (or CircuitProof: same four fields) per lane
+    -> WNLAProofBytes on `device`. All lanes share sizes."""
+    from .wnla import WNLAProofBytes
+
+    up = lambda a: torch.from_numpy(a).to(device)
+    return WNLAProofBytes(
+        r=up(compressed_cols([p.r for p in proofs])),
+        x=up(compressed_cols([p.x for p in proofs])),
+        l=up(scalar_cols([p.l for p in proofs])),
+        n=up(scalar_cols([p.n for p in proofs])),
+    )
+
+
+def wnla_dev_to_oracle(proof, b):
+    from ..oracle.wnla import WNLAProof
+
+    return WNLAProof(
+        r=point_vec_lane(proof.r, b),
+        x=point_vec_lane(proof.x, b),
+        l=scalars_lane(proof.l, b),
+        n=scalars_lane(proof.n, b),
+    )
+
+
+def wnla_dev_to_bytes(proof):
+    """WNLAProofDev (Jacobian points) -> WNLAProofBytes, compressing on
+    the proof's device."""
+    from .wnla import WNLAProofBytes
+
+    return WNLAProofBytes(
+        r=dc.compress(proof.r), x=dc.compress(proof.x), l=proof.l, n=proof.n
+    )
+
+
 def reciprocal_proofs_to_bytes(proofs, device="cuda"):
     """One oracle ReciprocalProof per lane -> ReciprocalProofBytes on
     `device`."""
     from .circuit import CircuitProofBytes
     from .reciprocal import ReciprocalProofBytes
-    from .wnla import WNLAProofBytes
 
     cps = [p.circuit_proof for p in proofs]
     up = lambda a: torch.from_numpy(a).to(device)
@@ -89,14 +146,56 @@ def reciprocal_proofs_to_bytes(proofs, device="cuda"):
             c_r=up(point_bytes([p.c_r for p in cps])),
             c_o=up(point_bytes([p.c_o for p in cps])),
             c_s=up(point_bytes([p.c_s for p in cps])),
-            wnla=WNLAProofBytes(
-                r=up(compressed_cols([p.r for p in cps])),
-                x=up(compressed_cols([p.x for p in cps])),
-                l=up(scalar_cols([p.l for p in cps])),
-                n=up(scalar_cols([p.n for p in cps])),
-            ),
+            wnla=wnla_proofs_to_bytes(cps, device=device),
         ),
         r=up(point_bytes([p.r for p in proofs])),
+    )
+
+
+def circuit_dev_to_oracle(proof, b):
+    """CircuitProofDev -> oracle CircuitProof at lane b."""
+    from ..oracle.circuit import CircuitProof
+
+    return CircuitProof(
+        c_l=point_lane(proof.c_l, b),
+        c_r=point_lane(proof.c_r, b),
+        c_o=point_lane(proof.c_o, b),
+        c_s=point_lane(proof.c_s, b),
+        r=point_vec_lane(proof.wnla.r, b),
+        x=point_vec_lane(proof.wnla.x, b),
+        l=scalars_lane(proof.wnla.l, b),
+        n=scalars_lane(proof.wnla.n, b),
+    )
+
+
+def reciprocal_dev_to_oracle(proof, b):
+    """ReciprocalProofDev -> oracle ReciprocalProof at lane b."""
+    from ..oracle.reciprocal import ReciprocalProof
+
+    return ReciprocalProof(
+        circuit_proof=circuit_dev_to_oracle(proof.circuit, b),
+        r=point_lane(proof.r, b),
+    )
+
+
+def reciprocal_dev_to_bytes(proof):
+    """ReciprocalProofDev -> ReciprocalProofBytes on the proof's device:
+    the five single points compress in one stacked call, the WNLA X/R in
+    another, so a proof goes from the prover to the verifier without a
+    host round trip."""
+    from .circuit import CircuitProofBytes
+    from .reciprocal import ReciprocalProofBytes
+
+    cp = proof.circuit
+    five = dc.compress(
+        dc.PointJ(*(torch.stack(cs, dim=1) for cs in zip(cp.c_l, cp.c_r, cp.c_o, cp.c_s, proof.r)))
+    )
+    return ReciprocalProofBytes(
+        circuit=CircuitProofBytes(
+            c_l=five[:, 0], c_r=five[:, 1], c_o=five[:, 2], c_s=five[:, 3],
+            wnla=wnla_dev_to_bytes(cp.wnla),
+        ),
+        r=five[:, 4],
     )
 
 
@@ -105,29 +204,37 @@ def reciprocal_proofs_to_bytes(proofs, device="cuda"):
 
 def from_reference(obj, device="cuda"):
     """The JAX package's pytrees, given as numpy arrays, -> this package's
-    containers on `device`: same shapes, int64 (masks stay bool). Accepts an array, a
-    `PointJ`-shaped triple, a `WNLAProofBytes` / `CircuitProofBytes` /
-    `ReciprocalProofBytes`-shaped namedtuple (matched by field names, so
-    the JAX package's own classes and this package's both work), and
-    tuples, lists and dicts of those."""
-    from .circuit import CircuitProofBytes
-    from .reciprocal import ReciprocalProofBytes
-    from .wnla import WNLAProofBytes
+    containers on `device`: same shapes, int64 (masks stay bool). Accepts
+    an array, a `PointJ`-shaped triple, a proof or witness namedtuple of
+    either package (`WNLAProofBytes` / `WNLAProofDev`, `CircuitProofBytes`
+    / `CircuitProofDev`, `ReciprocalProofBytes` / `ReciprocalProofDev`,
+    `CircuitWitnessDev`, `ReciprocalWitnessDev` — matched by field names;
+    the wire and the device form of a proof share theirs and are told
+    apart by whether their points are byte arrays or `PointJ` triples),
+    and tuples, lists and dicts of those."""
+    from .circuit import CircuitProofBytes, CircuitProofDev, CircuitWitnessDev
+    from .reciprocal import ReciprocalProofBytes, ReciprocalProofDev, ReciprocalWitnessDev
+    from .wnla import WNLAProofBytes, WNLAProofDev
 
     by_fields = {
-        ("x", "y", "z"): dc.PointJ,
-        ("r", "x", "l", "n"): WNLAProofBytes,
-        ("c_l", "c_r", "c_o", "c_s", "wnla"): CircuitProofBytes,
-        ("circuit", "r"): ReciprocalProofBytes,
+        ("x", "y", "z"): (dc.PointJ, dc.PointJ),
+        ("r", "x", "l", "n"): (WNLAProofBytes, WNLAProofDev),
+        ("c_l", "c_r", "c_o", "c_s", "wnla"): (CircuitProofBytes, CircuitProofDev),
+        ("circuit", "r"): (ReciprocalProofBytes, ReciprocalProofDev),
+        ("v", "s_v", "w_l", "w_r", "w_o"): (CircuitWitnessDev, CircuitWitnessDev),
+        ("x", "s", "m", "digits"): (ReciprocalWitnessDev, ReciprocalWitnessDev),
     }
     if obj is None:
         return None
     fields = getattr(obj, "_fields", None)
     if fields is not None:
-        cls = by_fields.get(tuple(fields))
-        if cls is None:
+        pair = by_fields.get(tuple(fields))
+        if pair is None:
             raise TypeError(f"no counterpart for a container with fields {fields}")
-        return cls(*(from_reference(v, device) for v in obj))
+        # a proof as the prover leaves it holds points (triples with fields
+        # x, y, z) where its wire form holds byte arrays
+        is_dev = any(getattr(v, "_fields", None) == ("x", "y", "z") for v in obj)
+        return pair[is_dev](*(from_reference(v, device) for v in obj))
     if isinstance(obj, dict):
         return {k: from_reference(v, device) for k, v in obj.items()}
     if isinstance(obj, (tuple, list)):

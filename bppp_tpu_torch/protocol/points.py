@@ -1,6 +1,5 @@
 """Batched point-vector helpers (twin of the point side of
-oracle/vectors.py). Counterpart of `bppp_tpu/protocol/points.py`: the
-functions the verifier calls. Point vectors are `PointJ`s with
+oracle/vectors.py). Counterpart of `bppp_tpu/protocol/points.py`. Point vectors are `PointJ`s with
 coordinates (16, L, *batch); identity padding mirrors the reference's
 `vector_extend`."""
 
@@ -27,8 +26,26 @@ def pv_pad(p: PointJ, L: int) -> PointJ:
     return PointJ(*(torch.cat([a, b], dim=1) for a, b in zip(p, idl)))
 
 
+def pv_split(p: PointJ):
+    """Even/odd split along the length axis."""
+    return (
+        PointJ(*(a[:, 0::2] for a in p)),
+        PointJ(*(a[:, 1::2] for a in p)),
+    )
+
+
 def pv_concat(parts) -> PointJ:
     return PointJ(*(torch.cat(cs, dim=1) for cs in zip(*parts)))
+
+
+def pv_add(p: PointJ, q: PointJ) -> PointJ:
+    L = max(pv_len(p), pv_len(q))
+    return c.pt_add(pv_pad(p, L), pv_pad(q, L))
+
+
+def pv_scale(p: PointJ, s) -> PointJ:
+    """[s]p lane-wise; s a (16, *batch) scalar shared across the vector."""
+    return c.pt_scalar_mul(p, s[:, None])
 
 
 def msm(points: PointJ, scalars) -> PointJ:

@@ -1,10 +1,10 @@
-"""Reciprocal range proof, verifier side, batched.
+"""Reciprocal range proof, batched.
 
-Counterpart of the verifier half of `bppp_tpu/protocol/reciprocal.py`
-(host twin: oracle/reciprocal.py).
+Counterpart of `bppp_tpu/protocol/reciprocal.py` (host twin:
+oracle/reciprocal.py).
 
-  * The dim_np pole constants (e + j)^-1 are inverted in ONE
-    Montgomery-trick batch.
+  * The dim_nd digit reciprocals r_i = (d_i + e)^-1 and the dim_np pole
+    constants (e + j)^-1 are inverted in ONE Montgomery-trick batch.
   * make_circuit builds W_m / W_l as batched limb tensors from challenge
     e by stacking static blocks with the two data-dependent blocks (the
     -e diagonal and the pole row), and supplies closed forms for the
@@ -12,6 +12,10 @@ Counterpart of the verifier half of `bppp_tpu/protocol/reciprocal.py`
   * verify decompresses all 14 proof points in one stacked call and folds
     every wire-format check into the accept mask; nothing raises on
     malformed bytes.
+  * prove takes the circuit commitment as V + R (one point add): it is
+    the same group element as the circuit layer's own commitment of
+    [x || r] under s + r_blind, and compression normalises the
+    representative, so the absorbed bytes are the same.
 """
 
 from __future__ import annotations
@@ -29,12 +33,35 @@ from ..ops.curve import PointJ
 from ..transcript.device import Transcript
 from . import points as pv
 from . import vectors as sv
-from .circuit import ArithmeticCircuitDevice, CircuitProofBytes
+from .circuit import (
+    ArithmeticCircuitDevice,
+    CircuitProofBytes,
+    CircuitProofDev,
+    CircuitWitnessDev,
+    n_blind_draws,
+)
+
+
+class ReciprocalProofDev(NamedTuple):
+    circuit: CircuitProofDev
+    r: PointJ  # poles commitment
 
 
 class ReciprocalProofBytes(NamedTuple):
     circuit: CircuitProofBytes
     r: torch.Tensor  # (33, *batch)
+
+
+class ReciprocalWitnessDev(NamedTuple):
+    x: torch.Tensor  # (16, *batch) value limbs
+    s: torch.Tensor  # (16, *batch) blinding
+    m: torch.Tensor  # (16, np, *batch) multiplicities
+    digits: torch.Tensor  # (16, nd, *batch)
+
+
+def reciprocal_blind_draws(dim_nd: int) -> int:
+    """r_blind + the circuit's draws."""
+    return 1 + n_blind_draws(dim_nd + 1, dim_nd)
 
 
 class ReciprocalRangeProofDevice:
@@ -56,6 +83,44 @@ class ReciprocalRangeProofDevice:
         self.tables = tables  # fixed-base window tables (circuit layer)
         self.batch = tuple(g.x.shape[1:])
         self.device = g.x.device
+
+    def _fixed_commit(self, parts) -> PointJ:
+        """MSM over a static-position SUBSET of the fixed-generator table
+        layout [g | h_vec | h_vec_ | g_vec | g_vec_]: parts =
+        [(table_pos, (16, k, *b) scalars)], static positions. The kernel
+        walks ONLY the live generators (commit_value touches 2 of 49,
+        commit_poles 17)."""
+        from ..ops import fixed_base as fb
+
+        all_pts = pv.pv_concat(
+            [pv.single(self.g), self.h_vec, self.h_vec_, self.g_vec, self.g_vec_]
+        )
+        positions, segs = [], []
+        for pos, scs in sorted(parts, key=lambda p: p[0]):
+            positions.extend(range(pos, pos + scs.shape[1]))
+            segs.append(scs)
+        tab = self.tables.get("full") if self.tables else None
+        return fb.msm_fixed_positions(tab, all_pts, tuple(positions), sv.sv_concat(segs))
+
+    def commit_value(self, x, s) -> PointJ:
+        """x*g + s*h_vec[0]."""
+        if self.tables is not None:
+            return self._fixed_commit([(0, x[:, None]), (1, s[:, None])])
+        pts = pv.pv_concat([pv.single(self.g), PointJ(*(a[:, :1] for a in self.h_vec))])
+        return pv.msm(pts, torch.stack([x, s], dim=1))
+
+    def commit_poles(self, r, s) -> PointJ:
+        """s*h_vec[0] + <h_vec[9:], r>."""
+        if self.tables is not None:
+            # h_vec[0] is table position 1; h_vec[9:] starts at position 10
+            return self._fixed_commit([(1, s[:, None]), (10, r)])
+        pts = pv.pv_concat(
+            [
+                PointJ(*(a[:, :1] for a in self.h_vec)),
+                PointJ(*(a[:, 9:] for a in self.h_vec)),
+            ]
+        )
+        return pv.msm(pts, sv.sv_concat([s[:, None], r]))
 
     def verify(
         self,
@@ -110,6 +175,48 @@ class ReciprocalRangeProofDevice:
             pre=(four, xr),
         )
         return ok & wire_ok
+
+    def prove(
+        self,
+        commitment: PointJ,
+        witness: ReciprocalWitnessDev,
+        t: Transcript,
+        blind,
+    ) -> ReciprocalProofDev:
+        """blind: (16, reciprocal_blind_draws(nd), *b) blinding stream
+        (draw order: r_blind first, then the circuit's draws)."""
+        t.append_message(b"reciprocal_commitment", dc.compress(commitment))
+        e = t.challenge_scalar(b"reciprocal_challenge")
+
+        # r_i = (d_i + e)^-1, batched with the pole constants (e+j)^-1
+        # that make_circuit needs — ONE inversion ladder for all nd + np.
+        d_plus_e = f.fn_add(witness.digits, e[:, None])
+        poles_in = _e_plus_j(e, self.dim_np)
+        inv_all = sv.fn_inv_vec(sv.sv_concat([d_plus_e, poles_in]))
+        r = inv_all[:, : self.dim_nd]
+        pole_inv = inv_all[:, self.dim_nd :]
+
+        r_blind = blind[:, 0]
+        r_com = self.commit_poles(r, r_blind)
+
+        circuit = self.make_circuit(e, pole_inv=pole_inv)
+        v_vec = sv.sv_concat([witness.x[:, None], r])
+        s_v = f.fn_add(witness.s, r_blind)
+        # circuit.commit([x || r], s + r_blind) == commit_value(x, s) +
+        # commit_poles(r, r_blind): one point add instead of an
+        # 18-position table walk
+        cc = dc.pt_add(commitment, r_com)
+        cc_bytes = dc.compress(cc)
+
+        cw = CircuitWitnessDev(
+            v=v_vec[:, None],  # (16, k=1, nv, *b)
+            s_v=s_v[:, None],
+            w_l=witness.digits,
+            w_r=r,
+            w_o=witness.m,
+        )
+        cp = circuit.prove(pv.single(cc), cc_bytes[:, None], cw, t, blind[:, 1:])
+        return ReciprocalProofDev(circuit=cp, r=r_com)
 
     def make_circuit(self, e, pole_inv=None) -> ArithmeticCircuitDevice:
         """Deterministic challenge -> circuit.

@@ -1,9 +1,13 @@
-"""u64 range proof, verifier side, batched — the flagship entry point.
+"""u64 range proof, batched — the flagship entry point.
 
-Counterpart of the verifier half of `bppp_tpu/protocol/u64.py`. Fixed
-instantiation of the reciprocal protocol: base 16, 16 hex digits;
-g_vec = 16, h_vec = 26 circuit + 6 WNLA padding = 32. A proof is 13 group
-elements + 3 scalars per value.
+Counterpart of `bppp_tpu/protocol/u64.py`. Fixed instantiation of the
+reciprocal protocol: base 16, 16 hex digits; g_vec = 16, h_vec = 26
+circuit + 6 WNLA padding = 32. A proof is 13 group elements + 3 scalars
+per value.
+
+Values enter as (2, *batch) int64 tensors of 32-bit (lo, hi) halves; the
+digit and multiplicity decomposition runs on the tensor's device with
+static shifts and one-hot counting.
 """
 
 from __future__ import annotations
@@ -15,13 +19,21 @@ from ..ops.curve import PointJ
 from ..ops.fixed_base import DEFAULT_W, build_tables
 from ..transcript.device import Transcript
 from . import points as pv
-from .reciprocal import ReciprocalProofBytes, ReciprocalRangeProofDevice
+from .reciprocal import (
+    ReciprocalProofBytes,
+    ReciprocalProofDev,
+    ReciprocalRangeProofDevice,
+    ReciprocalWitnessDev,
+    reciprocal_blind_draws,
+)
 
 G_VEC_FULL_SZ = 16
 H_VEC_CIRCUIT_SZ = 26
 H_VEC_FULL_SZ = 32
 DIM_ND = 16
 DIM_NP = 16
+
+U64_BLIND_DRAWS = reciprocal_blind_draws(DIM_ND)  # 52
 
 
 class U64RangeProofDevice:
@@ -54,6 +66,24 @@ class U64RangeProofDevice:
             tables=self.tables,
         )
 
+    def commit_value(self, x_words, s) -> PointJ:
+        """x_words: (2, *batch) int64 (lo, hi) 32-bit halves; s:
+        (16, *batch) limbs -> the value commitment x*g + s*h_vec[0]."""
+        return self._reciprocal().commit_value(u64_to_limbs(x_words), s)
+
+    def prove(self, x_words, s, t: Transcript, blind) -> ReciprocalProofDev:
+        """blind: (16, U64_BLIND_DRAWS, *batch) blinding stream in the
+        reference's draw order."""
+        witness = ReciprocalWitnessDev(
+            x=u64_to_limbs(x_words),
+            s=s,
+            m=u64_to_hex_mapped(x_words),
+            digits=u64_to_hex(x_words),
+        )
+        recip = self._reciprocal()
+        commitment = recip.commit_value(witness.x, witness.s)
+        return recip.prove(commitment, witness, t, blind)
+
     def verify(
         self,
         commitment_bytes,
@@ -63,8 +93,9 @@ class U64RangeProofDevice:
     ):
         """commitment_bytes: (33, *batch) SEC1 bytes of the value
         commitment -> (*batch,) bool accept mask. fast=True runs the
-        collapsed one-MSM verifier (same transcript, same accept/reject
-        set as the mirror verifier, which a later slice ports)."""
+        collapsed one-MSM verifier, fast=False the mirror verifier that
+        folds the generators per round: same transcript, same
+        accept/reject set."""
         return self._reciprocal().verify(commitment_bytes, t, proof, fast=fast)
 
 
@@ -79,3 +110,40 @@ def build_u64_tables(g: PointJ, g_vec: PointJ, h_vec: PointJ, w_bits: int = DEFA
     # the circuit MSM's subset [g | g_vec] slices the generator axis
     gv = tab.take([0] + list(range(1 + H_VEC_FULL_SZ, 1 + H_VEC_FULL_SZ + G_VEC_FULL_SZ)))
     return {"full": tab, "gv": gv}
+
+
+def u64_to_limbs(x_words):
+    """(2, *batch) (lo, hi) 32-bit halves -> (16, *batch) F_n limbs."""
+    lo, hi = x_words[0], x_words[1]
+    limbs = [lo & 0xFFFF, (lo >> 16) & 0xFFFF, hi & 0xFFFF, (hi >> 16) & 0xFFFF]
+    zero = torch.zeros_like(lo)
+    return torch.stack(limbs + [zero] * 12, dim=0)
+
+
+def u64_digits(x_words):
+    """(2, *batch) -> (16, *batch) hex-digit values (0..15),
+    least-significant first."""
+    lo, hi = x_words[0], x_words[1]
+    digs = [(lo >> (4 * i)) & 15 for i in range(8)]
+    digs += [(hi >> (4 * i)) & 15 for i in range(8)]
+    return torch.stack(digs, dim=0)
+
+
+def _as_limb0(vals):
+    """(L, *batch) small values -> (16, L, *batch) limbs."""
+    out = vals.new_zeros((16,) + tuple(vals.shape))
+    out[0] = vals
+    return out
+
+
+def u64_to_hex(x_words):
+    """(2, *batch) -> (16, nd=16, *batch) digit limbs."""
+    return _as_limb0(u64_digits(x_words))
+
+
+def u64_to_hex_mapped(x_words):
+    """Digit multiplicities: out[:, v] = #digits == v, as
+    (16, np=16, *batch) limbs."""
+    d = u64_digits(x_words)  # (16, *batch)
+    counts = torch.stack([(d == v).sum(dim=0) for v in range(16)], dim=0)
+    return _as_limb0(counts)

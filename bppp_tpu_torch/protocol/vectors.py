@@ -1,8 +1,7 @@
 """Batched F_n vector math over limb tensors (twin of oracle/vectors.py).
 
-Counterpart of `bppp_tpu/protocol/vectors.py`: the functions the verifier
-calls. A scalar is (16, *batch) int64 limbs (see ops/field.py); a scalar
-*vector* is (16, L, *batch) with the length axis at position 1 so every
+Counterpart of `bppp_tpu/protocol/vectors.py`. A scalar is (16, *batch)
+int64 limbs (see ops/field.py); a scalar *vector* is (16, L, *batch) with the length axis at position 1 so every
 field op broadcasts over (L, *batch) lanes at once. Helpers pad shorter
 operands with zeros, matching the reference's `vector_extend`.
 """
@@ -30,6 +29,11 @@ def sv_pad(a, L: int):
 def _pad_pair(a, b):
     L = max(a.shape[1], b.shape[1])
     return sv_pad(a, L), sv_pad(b, L)
+
+
+def sv_split(a):
+    """Even/odd split along the length axis."""
+    return a[:, 0::2], a[:, 1::2]
 
 
 def sv_add(a, b):
@@ -96,6 +100,17 @@ def sv_tensor(a, b):
     prod = f.fn_mul(a[:, :, None], b[:, None, :])  # (16, La, Lb, *batch)
     prod = prod.movedim(2, 1)  # (16, Lb, La, *batch)
     return prod.reshape((16, La * Lb) + tuple(a.shape[2:]))
+
+
+def sv_interleave(a, b):
+    """out[:, 2t] = a_t, out[:, 2t+1] = b_t — inverse of sv_split."""
+    assert a.shape == b.shape
+    st = torch.stack([a, b], dim=2)  # (16, L, 2, *batch)
+    return st.reshape((16, 2 * a.shape[1]) + tuple(a.shape[2:]))
+
+
+def sv_neg(a):
+    return f.fn_neg(a)
 
 
 def sv_concat(parts):

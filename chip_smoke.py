@@ -3,16 +3,26 @@
 
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --kernels-only
-    python3 chip_smoke.py --profile  # where one verify batch spends its time
+    python3 chip_smoke.py --profile [--path verify|mirror|prove]
+                                     # where one batch of that path spends its time
 
 Builds the CUDA kernels of `bppp_tpu_torch/csrc/` from source, holds each
 kernel against its plain PyTorch version on the card (exact equality),
-then drives the port's main path — batched u64 range-proof verification
-through `U64RangeProofDevice.verify(fast=True)` at a batch of 1024 — and
-checks the accept mask lane for lane, that every kernel was launched on
-that path and that no plain version was. Every phase prints one JSON
-line; any mismatch or exception ends the run with a non-zero exit code.
-There is no CPU route: without a CUDA device the script fails.
+and drives the port's paths at a batch of 1024 u64 range proofs:
+
+  verify  `U64RangeProofDevice.verify(fast=True)`, the collapsed verifier
+          (also at a batch of 16384);
+  mirror  `verify(fast=False)`, the verifier that folds the generators per
+          round, on the same batch: its mask equals the expected one and
+          the fast verifier's;
+  prove   `commit_value` + `prove`: the proof bytes of the distinct lanes
+          equal the host oracle's under replayed blinding draws, and both
+          verifiers accept every produced proof.
+
+For each path it checks that every kernel of that path was launched and
+that no plain version was. Every phase prints one JSON line; any mismatch
+or exception ends the run with a non-zero exit code. There is no CPU
+route: without a CUDA device the script fails.
 
 Bounds (`bound_ms`) are the least time the card could take for the same
 work: bytes moved (each input read once, each output written once) over
@@ -35,9 +45,9 @@ import time
 import numpy as np
 import torch
 
-from bppp_tpu_torch.models import u64_fixture
+from bppp_tpu_torch.models import u64_fixture, u64_prove_batch
 from bppp_tpu_torch.ops import _build
-from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_msm
+from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_ladder, cuda_msm
 from bppp_tpu_torch.ops import curve as dc
 from bppp_tpu_torch.ops import field as f
 from bppp_tpu_torch.ops import glv
@@ -47,12 +57,13 @@ from bppp_tpu_torch.oracle.field import P as P_INT
 from bppp_tpu_torch.oracle.merlin import Transcript as HostTranscript
 from bppp_tpu_torch.protocol import convert as cv
 from bppp_tpu_torch.transcript.device import Transcript
+from bppp_tpu_torch.utils.rng import ReplayRng
 
 LABEL = b"u64 range proof"
 SEED = "chip smoke"
 BATCH = 1024
 BIG_BATCH = 16384
-PLAIN_B = 64  # lanes the slow plain versions run on (sliced from the same inputs)
+PLAIN_B = 64  # lanes the slow plain versions run on (taken from the same inputs)
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
@@ -62,7 +73,13 @@ MAD_MUL_P = 64 + 9
 MAD_MUL_N = 64 + 75
 MULS_ADD, MULS_MIXED, MULS_DBL = 16, 11, 7
 
-COUNTERS = (cuda_keccak, cuda_msm, cuda_fixed_base, cuda_curve)
+COUNTERS = (cuda_keccak, cuda_msm, cuda_fixed_base, cuda_curve, cuda_ladder)
+# the kernels each path must launch (and no plain version)
+PATH_KERNELS = {
+    "verify": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add", "pt_double"),
+    "mirror": ("f1600", "pow_const", "msm_small_wnaf", "pt_add", "scalar_mul", "tree_sum"),
+    "prove": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add"),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -99,6 +116,18 @@ def time_ms(fn, reps: int = 5, warm: int = 1) -> float:
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def timed_once(fn):
+    """(result, milliseconds by CUDA events) of one cold call of `fn`."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def bound(nbytes: float, ops: float):
@@ -146,6 +175,21 @@ def rand_points(gen, shape, dev):
 # -- phase: kernels ---------------------------------------------------------------
 
 
+def plain_lanes(B: int, dev):
+    """The lanes of a B-lane launch that a slow plain version is run on:
+    the first and the last PLAIN_B / 2, so the first block, the last full
+    block and the partial tail block of a ragged batch are all compared."""
+    if B <= PLAIN_B:
+        return torch.arange(B, device=dev)
+    half = PLAIN_B // 2
+    return torch.cat([torch.arange(half, device=dev), torch.arange(B - half, B, device=dev)])
+
+
+def kernel_of(row_name: str) -> str:
+    """The kernel a row of the kernels phase stands for: "pow_const[fp_inv] ragged" -> "pow_const"."""
+    return row_name.split("[")[0].split(" ")[0]
+
+
 def check_keccak(gen, dev, B):
     st = torch.from_numpy(gen.integers(0, 256, size=(200, B))).to(dev)
     st[:, 0] = 0
@@ -172,17 +216,18 @@ def check_pow(gen, dev, B):
         x[:, 1] = 0
         x[0, 1] = 1
         got = cuda_msm.pow_const(x, e, kind)
-        want = cuda_msm.pow_const_plain(x[:, :PLAIN_B], e, kind)
-        err = max_err(got[:, :PLAIN_B], want)
+        lanes = plain_lanes(B, dev)
+        xs = x[:, lanes].contiguous()
+        want, plain_ms = timed_once(lambda: cuda_msm.pow_const_plain(xs, e, kind))
+        err = max_err(got[:, lanes], want)
         assert int(got[:, 0].abs().sum()) == 0, "pow(0) must be 0"
         ms = time_ms(lambda: cuda_msm.pow_const(x, e, kind))
-        plain_ms = time_ms(lambda: cuda_msm.pow_const_plain(x[:, :PLAIN_B], e, kind), reps=1, warm=0)
         digits = cuda_msm._pow_digits(e)
         muls = 14 + 5 * (len(digits) - 1)
         mad = MAD_MUL_P if kind == "p" else MAD_MUL_N
         b_ms, by = bound(2 * 16 * 4 * B, 2 * mad * muls * B)
         out.append(dict(name=f"pow_const[{tag}]", err=err, ms=ms, plain_ms=plain_ms,
-                        plain_B=PLAIN_B, bound_ms=b_ms, bound_by=by, shape=[16, B],
+                        plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[16, B],
                         compared="limbs"))
     return out
 
@@ -225,16 +270,16 @@ def check_fixed(gen, dev, B, tables, tag):
     sc[:, :, 0] = 0  # all-zero scalars: the identity
     sc[:, 1:, 1] = 0  # one live generator
     got = dc.PointJ(*cuda_fixed_base.fixed_msm(tables, sc))
-    want = dc.PointJ(*cuda_fixed_base.fixed_msm_plain(tables, sc[:, :, :PLAIN_B]))
-    err = max_err(dc.compress(got)[:, :PLAIN_B], dc.compress(want))
+    lanes = plain_lanes(B, dev)
+    scs = sc[:, :, lanes].contiguous()
+    want, plain_ms = timed_once(lambda: cuda_fixed_base.fixed_msm_plain(tables, scs))
+    err = max_err(dc.compress(got)[:, lanes], dc.compress(dc.PointJ(*want)))
     assert bool(dc.pt_is_identity(got)[0]), "zero scalars must give the identity"
     ms = time_ms(lambda: cuda_fixed_base.fixed_msm(tables, sc))
-    plain_ms = time_ms(lambda: cuda_fixed_base.fixed_msm_plain(tables, sc[:, :, :PLAIN_B]),
-                       reps=1, warm=0)
     live = int((cuda_fixed_base._digits(sc, tables.w_bits) != 0).sum())
     nbytes = tables.words.numel() * 4 + (16 * F + 3 * 16) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * MULS_MIXED * live)
-    return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=PLAIN_B,
+    return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
                 bound_ms=b_ms, bound_by=by, shape=[16, F, B], w_bits=tables.w_bits,
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
@@ -251,21 +296,85 @@ def check_msm_small(gen, dev, B, D):
     dig = dig.reshape(glv.GLV_WINDOWS * 2 * D, B)
     coords = [c.movedim(1, 0).contiguous() for c in pts]  # (D, 16, B)
     got = dc.PointJ(*cuda_msm.msm_small_wnaf(*coords, dig))
-    small = [c[:, :, :PLAIN_B].contiguous() for c in coords]
-    sdig = dig[:, :PLAIN_B].contiguous()
-    want = dc.PointJ(*cuda_msm.msm_small_wnaf_plain(*small, sdig))
-    err = max_err(dc.compress(got)[:, :PLAIN_B], dc.compress(want))
+    lanes = plain_lanes(B, dev)
+    small = [c[:, :, lanes].contiguous() for c in coords]
+    sdig = dig[:, lanes].contiguous()
+    want, plain_ms = timed_once(lambda: cuda_msm.msm_small_wnaf_plain(*small, sdig))
+    err = max_err(dc.compress(got)[:, lanes], dc.compress(dc.PointJ(*want)))
     assert bool(dc.pt_is_identity(got)[:2].all()), "zero scalars / identity points"
     ms = time_ms(lambda: cuda_msm.msm_small_wnaf(*coords, dig))
-    plain_ms = time_ms(lambda: cuda_msm.msm_small_wnaf_plain(*small, sdig), reps=1, warm=0)
     live = int(((dig & 15) != 0).sum())
     phi = int(((dig.reshape(glv.GLV_WINDOWS, D, 2, B)[:, :, 1] & 15) != 0).sum())
     muls = (132 * MULS_DBL + D * (MULS_DBL + 6 * MULS_ADD)) * B + MULS_ADD * live + phi
     nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
     return dict(name=f"msm_small_wnaf[D={D}]", err=err, ms=ms, plain_ms=plain_ms,
-                plain_B=PLAIN_B, bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
+                plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
+
+
+def check_scalar_mul(gen, dev, B):
+    p = rand_points(gen, (B,), dev)
+    k = rand_scalars(gen, (B,), N_INT, dev)
+    # lanes 0..4: k = 0, k = 1, k = n - 1, P = identity, a small scalar
+    for lane, val in ((0, 0), (1, 1), (2, N_INT - 1), (4, 0x1F)):
+        k[:, lane] = torch.from_numpy(f.int_to_limbs(val))[:, 0].to(dev)
+    p = dc.pt_select(torch.arange(B, device=dev) == 3, dc.identity((B,), device=dev), p)
+    got = cuda_ladder.scalar_mul(*p, k)
+    lanes = plain_lanes(B, dev)
+    small = [c[:, lanes].contiguous() for c in p]
+    ks = k[:, lanes].contiguous()
+    want, plain_ms = timed_once(lambda: cuda_ladder.scalar_mul_plain(*small, ks))
+    err = max_err([g[:, lanes] for g in got], want)
+    out = dc.PointJ(*got)
+    assert dc.pt_is_identity(out)[[0, 3]].all(), "k = 0 and P = identity must give the identity"
+    assert bool(dc.pt_eq(out, p)[1]), "k = 1 must give P"
+    assert bool(dc.pt_eq(out, dc.pt_neg(p))[2]), "k = n - 1 must give -P"
+    ms = time_ms(lambda: cuda_ladder.scalar_mul(*p, k))
+    # work this run's data needs: nothing for an identity point or a zero
+    # scalar; else the 14 table adds, the doubles below the top nonzero
+    # window and one add per nonzero window
+    digits = torch.stack([(k[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])  # (64, B)
+    live = ~dc.pt_is_identity(p) & (digits != 0).any(dim=0)
+    top = torch.where(digits != 0, torch.arange(64, device=dev)[:, None], 0).max(dim=0).values
+    adds = int((14 + (digits != 0).sum(dim=0))[live].sum())
+    dbls = int((4 * top)[live].sum())
+    b_ms, by = bound(7 * 16 * 4 * B, 2 * MAD_MUL_P * (MULS_ADD * adds + MULS_DBL * dbls))
+    return dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
+                bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+
+
+def check_tree_sum(gen, dev, L, B):
+    p = rand_points(gen, (L, B), dev)
+    # identity operands: a whole lane, a first point, a last point, a middle one
+    lane = torch.arange(B, device=dev)[None]
+    row = torch.arange(L, device=dev)[:, None]
+    dead = (lane == 0) | ((lane == 1) & (row == 0)) | ((lane == 2) & (row == L - 1)) \
+        | ((lane == 3) & (row == L // 2))
+    p = dc.pt_select(dead, dc.identity((L, B), device=dev), p)
+    got = cuda_ladder.tree_sum(*p)
+    want, plain_ms = timed_once(lambda: cuda_ladder.tree_sum_plain(*p))
+    err = max_err(got, want)
+    assert bool(dc.pt_is_identity(dc.PointJ(*got))[0]), "a sum of identities is the identity"
+    # the same POINT as the pairwise reduction with complete adds
+    ref = dc.compress(dc.PointJ(*cuda_curve.tree_sum_plain(*p)))
+    err = max(err, max_err(dc.compress(dc.PointJ(*got)), ref))
+    ms = time_ms(lambda: cuda_ladder.tree_sum(*p))
+    live_adds = int((~dead).sum()) - int((~dead).any(dim=0).sum())
+    b_ms, by = bound((3 * L + 3) * 16 * 4 * B, 2 * MAD_MUL_P * MULS_ADD * live_adds)
+    return dict(name=f"tree_sum[L={L}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+                bound_ms=b_ms, bound_by=by, shape=[16, L, B],
+                compared="limbs against the chained incomplete adds, compressed bytes "
+                         "against the pairwise complete reduction")
+
+
+def round0_r_positions():
+    """The table rows the fast WNLA prover's first-round R commitment walks
+    at the u64 dims: g, the odd positions of the 26 live h entries and the
+    odd positions of g_vec."""
+    lh, lg, zh = 32, 16, 6
+    return (0,) + tuple(1 + 2 * j + 1 for j in range((lh - zh) // 2)) \
+        + tuple(1 + lh + 2 * j + 1 for j in range(lg // 2))
 
 
 def phase_kernels(dev, tables, launches=None):
@@ -281,13 +390,24 @@ def phase_kernels(dev, tables, launches=None):
     rows += check_curve(gen, dev, BATCH)
     rows.append(check_fixed(gen, dev, BATCH, tables["full"], "F=49"))
     rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
-    rows.append(check_msm_small(gen, dev, BATCH, 2))
-    rows.append(check_msm_small(gen, dev, BATCH, 5))
+    r_rows = tables["full"].subset(round0_r_positions())
+    rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R rows"))
+    # every point count the small MSM is built for, so each instantiation a
+    # path can reach (verify: D = 2, 5; mirror: also 4 and 1; prove: 2) is held
+    # against the plain version at the batch's lanes
+    for D in range(1, cuda_msm.DMAX + 1):
+        rows.append(check_msm_small(gen, dev, BATCH, D))
+    # the mirror verifier's ladders: P_t (17 points) and the first generator fold (32)
+    rows.append(check_scalar_mul(gen, dev, 17 * BATCH))
+    rows.append(check_scalar_mul(gen, dev, 32 * BATCH))
+    rows.append(check_tree_sum(gen, dev, 17, BATCH))
     ragged = [check_keccak(gen, dev, 77)]
     ragged += check_pow(gen, dev, 131)
     ragged += check_curve(gen, dev, 201)
     ragged.append(check_fixed(gen, dev, 67, tables["gv"], "F=17"))
     ragged.append(check_msm_small(gen, dev, 70, 3))
+    ragged.append(check_scalar_mul(gen, dev, 203))
+    ragged.append(check_tree_sum(gen, dev, 7, 93))
     for r in ragged:
         r["name"] += " ragged"
     rows += ragged
@@ -296,7 +416,7 @@ def phase_kernels(dev, tables, launches=None):
     emit("kernels", ok=not bad, kernels=[
         dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
              kernel_ms=r["ms"], plain_ms=r["plain_ms"], plain_B=r["plain_B"],
-             launches=launches.get(r["name"].split("[")[0].split(" ")[0]),
+             launches=launches.get(kernel_of(r["name"])),
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], compared=r["compared"])
         for r in rows])
     if bad:
@@ -373,7 +493,30 @@ def make_batch(public, rng, B, dev):
     return cb.to(dev), pb, want, oracle
 
 
+def path_counts(path: str):
+    """After a path's run: (launches, kernels of the path never launched,
+    plain versions that were called)."""
+    launches, plain = read_counts()
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    return launches, missing, {k: n for k, n in plain.items() if n}
+
+
+def fail_on_counts(path: str, missing, plain_used) -> None:
+    if missing:
+        raise SystemExit(f"kernels never launched on the {path} path: {missing}")
+    if plain_used:
+        raise SystemExit(f"plain versions ran on the {path} path: {plain_used}")
+
+
+def run_verify(dobj, cb, pb, fast: bool):
+    B = cb.shape[-1]
+    return dobj.verify(cb, Transcript(LABEL, batch=(B,), device=cb.device), pb, fast=fast)
+
+
 def phase_verify(dev):
+    """-> (launches of the path, what the later phases share: the oracle
+    instance, the device instance, the rng, the batch and its expected and
+    observed masks)."""
     reset_counts()
     t0 = time.time()
     public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
@@ -381,19 +524,14 @@ def phase_verify(dev):
     setup_s = time.time() - t0
     cb, pb, want, oracle = make_batch(public, rng, BATCH, dev)
 
-    def run(dobj, cb_, pb_, B):
-        return dobj.verify(cb_, Transcript(LABEL, batch=(B,), device=dev), pb_, fast=True)
-
-    ok = run(device_obj, cb, pb, BATCH)
+    ok = run_verify(device_obj, cb, pb, fast=True)
     torch.cuda.synchronize()
-    launches, plain = read_counts()
+    launches, missing, plain_used = path_counts("verify")
     got = ok.cpu()
     assert got.dtype == torch.bool and tuple(got.shape) == (BATCH,)
     wrong = torch.nonzero(got != want).flatten().tolist()
-    missing = [k for k, n in launches.items() if n == 0]
-    plain_used = {k: n for k, n in plain.items() if n}
 
-    ms_1k = time_ms(lambda: run(device_obj, cb, pb, BATCH), reps=5)
+    ms_1k = time_ms(lambda: run_verify(device_obj, cb, pb, fast=True), reps=5)
     reps = BIG_BATCH // BATCH
     tile = lambda a: a.repeat((1,) * (a.ndim - 1) + (reps,)).contiguous()
     big_obj = type(device_obj)(
@@ -404,10 +542,10 @@ def phase_verify(dev):
     )
     cb_big = tile(cb)
     pb_big = _map_tensors(pb, tile)
-    ok_big = run(big_obj, cb_big, pb_big, BIG_BATCH)
+    ok_big = run_verify(big_obj, cb_big, pb_big, fast=True)
     torch.cuda.synchronize()
     big_wrong = int((ok_big.cpu() != want.repeat(reps)).sum())
-    ms_16k = time_ms(lambda: run(big_obj, cb_big, pb_big, BIG_BATCH), reps=3)
+    ms_16k = time_ms(lambda: run_verify(big_obj, cb_big, pb_big, fast=True), reps=3)
 
     emit(
         "verify", ok=not wrong and not missing and not plain_used and big_wrong == 0,
@@ -420,29 +558,151 @@ def phase_verify(dev):
     )
     if wrong or big_wrong:
         raise SystemExit(f"accept mask differs from the expected one at lanes {wrong} ({big_wrong} at 16384)")
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: {missing}")
-    if plain_used:
-        raise SystemExit(f"plain versions ran on the main path: {plain_used}")
-    return launches, device_obj.tables
+    fail_on_counts("verify", missing, plain_used)
+    ctx = dict(public=public, device_obj=device_obj, rng=rng, cb=cb, pb=pb, want=want, fast_mask=got)
+    return launches, ctx
+
+
+# -- phase: mirror ------------------------------------------------------------------
+
+
+def phase_mirror(dev, ctx):
+    """The mirror verifier on the verify phase's batch: the same mask as
+    expected and as the fast verifier gave, through the ladder and the
+    tree-sum kernels."""
+    device_obj, cb, pb, want = ctx["device_obj"], ctx["cb"], ctx["pb"], ctx["want"]
+    reset_counts()
+    ok = run_verify(device_obj, cb, pb, fast=False)
+    torch.cuda.synchronize()
+    launches, missing, plain_used = path_counts("mirror")
+    got = ok.cpu()
+    assert got.dtype == torch.bool and tuple(got.shape) == (BATCH,)
+    wrong = torch.nonzero(got != want).flatten().tolist()
+    differs = torch.nonzero(got != ctx["fast_mask"]).flatten().tolist()
+    ms = time_ms(lambda: run_verify(device_obj, cb, pb, fast=False), reps=5)
+    emit(
+        "mirror", ok=not wrong and not differs and not missing and not plain_used,
+        batch=BATCH, accepted=int(got.sum()), rejected_lanes=torch.nonzero(~got).flatten().tolist(),
+        wrong_lanes=wrong, lanes_differing_from_fast=differs, launches=launches,
+        plain_calls=plain_used, ms_per_batch_1024=ms, verifies_per_s_1024=BATCH / ms * 1e3,
+    )
+    if wrong or differs:
+        raise SystemExit(f"mirror mask: wrong at lanes {wrong}, differs from the fast verifier at {differs}")
+    fail_on_counts("mirror", missing, plain_used)
+    return launches
+
+
+# -- phase: prove -------------------------------------------------------------------
+
+
+def make_prove_batch(rng, dev):
+    """Prover inputs for the batch: four distinct lanes (value, s, blinding
+    draws) tiled over it, and from lane 4 on a value of the lane's own."""
+    xs = [0, 123456, 0xDEADBEEFCAFEBABE, 2**64 - 1]
+    pbt = u64_prove_batch(rng, xs, BATCH, device=dev)
+    own = np.random.default_rng(7).integers(0, 1 << 32, size=(2, BATCH - len(xs)), dtype=np.int64)
+    pbt.x_words[:, len(xs):] = torch.from_numpy(own).to(dev)
+    return pbt
+
+
+def proof_lanes_equal(got, want, n: int) -> list:
+    """Names of the fields of two ReciprocalProofBytes whose first n lanes differ."""
+    bad = []
+
+    def walk(a, b, name):
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a[..., :n].cpu(), b[..., :n].cpu()):
+                bad.append(name)
+            return
+        for field, x, y in zip(a._fields, a, b):
+            walk(x, y, f"{name}.{field}" if name else field)
+
+    walk(got, want, "")
+    return bad
+
+
+def phase_prove(dev, ctx):
+    """commit_value + prove for a batch on the card; the bytes of the
+    distinct lanes against the host oracle under replayed draws; every
+    produced proof through both verifiers."""
+    public, device_obj = ctx["public"], ctx["device_obj"]
+    pbt = make_prove_batch(ctx["rng"], dev)
+
+    def run():
+        com = device_obj.commit_value(pbt.x_words, pbt.s)
+        proof = device_obj.prove(
+            pbt.x_words, pbt.s, Transcript(LABEL, batch=(BATCH,), device=dev), pbt.blind)
+        return com, proof
+
+    reset_counts()
+    com, proof = run()
+    torch.cuda.synchronize()
+    launches, missing, plain_used = path_counts("prove")
+    pb = cv.reciprocal_dev_to_bytes(proof)
+    cb = dc.compress(com)
+
+    oracle_proofs, oracle_coms = [], []
+    for ln in pbt.lanes:
+        oracle_coms.append(public.commit_value(ln["x"], ln["s"]))
+        oracle_proofs.append(
+            public.prove(ln["x"], ln["s"], HostTranscript(LABEL), ReplayRng(ln["draws"])))
+    n = len(pbt.lanes)
+    differing = proof_lanes_equal(pb, cv.reciprocal_proofs_to_bytes(oracle_proofs, device="cpu"), n)
+    if not torch.equal(cb[:, :n].cpu(), torch.from_numpy(cv.point_bytes(oracle_coms))):
+        differing.append("commitment")
+
+    reset_counts()
+    ok_fast = run_verify(device_obj, cb, pb, fast=True).cpu()
+    ok_mirror = run_verify(device_obj, cb, pb, fast=False).cpu()
+    _, plain_verify = read_counts()
+    plain_used.update({k: v for k, v in plain_verify.items() if v})
+    rejected = sorted(set(torch.nonzero(~ok_fast).flatten().tolist())
+                      | set(torch.nonzero(~ok_mirror).flatten().tolist()))
+
+    ms = time_ms(run, reps=5)
+    emit(
+        "prove", ok=not differing and not rejected and not missing and not plain_used,
+        batch=BATCH, distinct_lanes=n, fields_differing_from_oracle=differing,
+        accepted_fast=int(ok_fast.sum()), accepted_mirror=int(ok_mirror.sum()),
+        rejected_lanes=rejected, launches=launches, plain_calls=plain_used,
+        table_subsets=len(device_obj.tables["full"].subsets),
+        table_subset_bytes=sum(t.words.numel() * 4 for t in device_obj.tables["full"].subsets.values()),
+        ms_per_batch_1024=ms, proves_per_s_1024=BATCH / ms * 1e3,
+    )
+    if differing:
+        raise SystemExit(f"proof bytes differ from the oracle's in {differing}")
+    if rejected:
+        raise SystemExit(f"a verifier rejects proofs the port made, lanes {rejected[:20]}")
+    fail_on_counts("prove", missing, plain_used)
+    return launches
 
 
 HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
-                "fixed_msm_kernel", "msm_small_wnaf_kernel")
+                "fixed_msm_kernel", "msm_small_wnaf_kernel", "scalar_mul_kernel",
+                "tree_sum_kernel")
 
 
-def phase_profile(dev):
-    """One verify batch of 1024 under torch.profiler: the device's busy and
-    idle share, the number of launches, and the device time by kernel."""
+def phase_profile(dev, path: str):
+    """One batch of 1024 of `path` under torch.profiler: the device's busy
+    and idle share, the number of launches, and the device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
     cb, pb, want, _ = make_batch(public, rng, BATCH, dev)
+    if path == "prove":
+        pbt = make_prove_batch(rng, dev)
 
-    def run():
-        return device_obj.verify(cb, Transcript(LABEL, batch=(BATCH,), device=dev), pb, fast=True)
+        def run():
+            device_obj.commit_value(pbt.x_words, pbt.s)
+            return device_obj.prove(
+                pbt.x_words, pbt.s, Transcript(LABEL, batch=(BATCH,), device=dev), pbt.blind)
 
-    assert run().cpu().tolist() == want.tolist()
+        run()
+    else:
+        def run():
+            return run_verify(device_obj, cb, pb, fast=path == "verify")
+
+        assert run().cpu().tolist() == want.tolist()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run()
@@ -463,13 +723,13 @@ def phase_profile(dev):
         rows.append((e.key, float(us) / 1e3, int(e.count)))
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
-        emit("profile", ok=False, note="the profiler recorded no device time: not measured",
-             wall_ms=wall_ms)
+        emit("profile", ok=False, path=path, wall_ms=wall_ms,
+             note="the profiler recorded no device time: not measured")
         return
     rows.sort(key=lambda r: -r[1])
     ours = [r for r in rows if any(k in r[0] for k in HAND_WRITTEN)]
     emit(
-        "profile", ok=True, batch=BATCH, wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
+        "profile", ok=True, path=path, batch=BATCH, wall_ms=wall_ms, profiled_wall_ms=profiled_wall_ms,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
         device_launches=sum(r[2] for r in rows), distinct_kernels=len(rows),
         hand_written_ms=sum(r[1] for r in ours),
@@ -493,12 +753,17 @@ REPLACES = {
     "msm_small_wnaf": ("bppp_tpu_torch/csrc/msm_small.cu", "bppp_tpu/ops/pallas_msm.py:689"),
     "pt_add": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_curve.py:71"),
     "pt_double": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_curve.py:85"),
+    "scalar_mul": ("bppp_tpu_torch/csrc/ladder.cu", "bppp_tpu/ops/pallas_msm.py:216"),
+    "tree_sum": ("bppp_tpu_torch/csrc/ladder.cu", "bppp_tpu/ops/pallas_msm.py:748"),
 }
 # the row of the kernels phase that stands for each kernel at the main path's shapes
 MAIN_ROW = {
     "f1600": "f1600", "pow_const": "pow_const[fp_sqrt]", "fixed_msm": "fixed_msm[F=49]",
     "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add", "pt_double": "pt_double",
+    "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": "tree_sum[L=17]",
 }
+# the path whose run gives a kernel's `launches` in the kernels line
+COUNTED_ON = {"scalar_mul": "mirror", "tree_sum": "mirror"}
 
 
 def main() -> int:
@@ -506,7 +771,9 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel comparison")
     ap.add_argument("--profile", action="store_true",
-                    help="profile one verify batch instead of the smoke phases")
+                    help="profile one batch of --path instead of the smoke phases")
+    ap.add_argument("--path", choices=sorted(PATH_KERNELS), default="verify",
+                    help="the path --profile runs (default: verify)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -523,7 +790,7 @@ def main() -> int:
          flags=" ".join(_build.NVCC_FLAGS))
 
     if args.profile:
-        phase_profile(dev)
+        phase_profile(dev, args.path)
         print(smi, flush=True)
         return 0
     if args.kernels_only:
@@ -532,16 +799,22 @@ def main() -> int:
         print(smi, flush=True)
         return 0
 
-    launches, tables = phase_verify(dev)
-    rows = {r["name"]: r for r in phase_kernels(dev, tables, launches)}
+    by_path = {}
+    by_path["verify"], ctx = phase_verify(dev)
+    by_path["mirror"] = phase_mirror(dev, ctx)
+    by_path["prove"] = phase_prove(dev, ctx)
+    counted = {name: by_path[COUNTED_ON.get(name, "verify")][name] for name in REPLACES}
+    rows = {r["name"]: r for r in phase_kernels(dev, ctx["device_obj"].tables, counted)}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = rows[MAIN_ROW[name]]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=r["err"], ms=r["ms"],
+            launches=counted[name], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, shape=r["shape"], plain_B=r["plain_B"],
+            counted_on=COUNTED_ON.get(name, "verify"),
+            launches_by_path={p: by_path[p][name] for p in by_path},
         ))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

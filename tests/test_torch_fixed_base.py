@@ -145,3 +145,83 @@ def test_fixed_msm_zero_scalars_give_identity():
     out = tc.PointJ(*cfb.fixed_msm(tab, torch.zeros((16, 3, 2), dtype=torch.int64)))
     assert tc.pt_is_identity(out).all()
     assert int(tc.compress(out).abs().sum()) == 0
+
+
+# -- the prover's entry points: a static subset of the table rows, or all of them --
+
+
+def _subset_inputs(B=2, lead=None):
+    """Scalars (16, P, *lead, B) for the positions (2, 0) of GENS, and the
+    oracle's sums per (lead, lane)."""
+    shape = ((lead,) if lead else ()) + (B,)
+    count = int(np.prod(shape))
+    ks = [[rand_scalar() for _ in range(count)] for _ in range(2)]
+    ks[0][0] = 0
+    sc = T(np.stack([tf.ints_to_limbs(r) for r in ks], axis=1)).reshape((16, 2) + shape)
+    want = [GENS[2].mul(ks[0][j]).add(GENS[0].mul(ks[1][j])).to_bytes() for j in range(count)]
+    return sc, want
+
+
+SUBSET = _subset_inputs()
+
+
+@pytest.mark.parametrize("w_bits", [None, 4], ids=["no_tables", "W4"])
+def test_msm_fixed_positions_matches_oracle(w_bits):
+    """sum_j [s_j] G_positions[j] for positions (2, 0): scalars in POSITION
+    order, with tables (only those rows are walked) and without."""
+    sc, want = SUBSET
+    tab = tables(w_bits) if w_bits else None
+    pts = tc.from_int_points(GENS, batch=(2,), device="cpu")
+    got = tc.compress(fb.msm_fixed_positions(tab, pts, (2, 0), sc))
+    assert [bytes(got[:, b].tolist()) for b in range(2)] == want
+    with pytest.raises(ValueError):
+        fb.msm_fixed_positions(tab, pts, (2, 0, 1), sc)
+
+
+def test_table_subsets_are_built_once_and_kept():
+    tab = fb.build_tables(tc.from_int_points(GENS, device="cpu"), 2)
+    assert tab.subsets == {}
+    first = tab.subset((2, 0))
+    assert tab.subset([2, 0]) is first and list(tab.subsets) == [(2, 0)]
+    assert first.n_points == 2 and torch.equal(first.words[:, 0], tab.words[:, 2])
+    assert tab.subset((0,)) is not first and len(tab.subsets) == 2
+
+
+def test_fixed_msms_flatten_leading_batch_axes():
+    """Several MSMs stacked on a leading batch axis ride one call: with
+    tables the axes flatten into lanes, without them the generators
+    broadcast over the extra axis."""
+    sc, want = _subset_inputs(B=2, lead=3)  # (16, 2, 3, 2)
+    pts = tc.from_int_points(GENS, batch=(2,), device="cpu")  # (16, 3, 2)
+    for tab in (tables(4), None):
+        got = fb.msm_fixed_positions(tab, pts, (2, 0), sc)
+        assert got.x.shape == (16, 3, 2)
+        flat = tc.compress(got).reshape(33, 6)
+        assert [bytes(flat[:, j].tolist()) for j in range(6)] == want
+
+
+@pytest.mark.parametrize("w_bits", [None, 4], ids=["no_tables", "W4"])
+def test_msm_fixed_total_matches_oracle(w_bits):
+    fixed_pts, fsc, _, _, _ = MIXED
+    tab = tables(w_bits) if w_bits else None
+    got = tc.compress(fb.msm_fixed_total(tab, fixed_pts, fsc))
+    ks = [tf.limbs_to_ints(fsc[:, i]) for i in range(3)]
+    for b in range(2):
+        acc = oc.IDENTITY
+        for g, row in zip(GENS, ks):
+            acc = acc.add(g.mul(row[b]))
+        assert bytes(got[:, b].tolist()) == acc.to_bytes()
+
+
+def test_msm_fixed_positions_matches_jax():
+    """The JAX package's `msm_fixed_positions` (its table-less route, called
+    un-jitted) on the same inputs: the same points. Its `msm_fixed_total`
+    is the same Straus walk over all rows; the port's is held against the
+    oracle above."""
+    sc, _ = SUBSET
+    fixed_pts = MIXED[0]
+    J = lambda a: jnp.asarray(a.numpy().astype(np.uint32))
+    jpts = jc.PointJ(*(J(c) for c in fixed_pts))
+    jpos = jc.compress(jfb.msm_fixed_positions(None, jpts, (2, 0), J(sc)))
+    got = tc.compress(fb.msm_fixed_positions(tables(4), fixed_pts, (2, 0), sc))
+    assert np.array_equal(got.numpy(), np.asarray(jpos).astype(np.int64))

@@ -70,3 +70,56 @@ def test_chip_smoke_fails_without_a_gpu():
                          capture_output=True, text=True)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# -- what chip_smoke.py compares and reports -------------------------------------------
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("B", [5, 64, 70, 131, 203, 1024, 17 * 1024, 32 * 1024])
+def test_chip_smoke_compares_lanes_from_both_ends_of_a_launch(B):
+    """The lanes a slow plain version runs on reach the last lane, so the
+    partial tail block of a ragged batch is compared too, and keep lanes
+    0..4, where the checks put their special values."""
+    cs = _chip_smoke()
+    lanes = cs.plain_lanes(B, "cpu").tolist()
+    assert len(lanes) == min(B, cs.PLAIN_B) and len(set(lanes)) == len(lanes)
+    assert lanes[: min(B, 5)] == list(range(min(B, 5))) and lanes[-1] == B - 1
+    assert all(0 <= i < B for i in lanes)
+    if B > cs.PLAIN_B:
+        assert (B - 1) // 64 == lanes[-1] // 64 and lanes[-32] == B - 32
+
+
+@pytest.mark.parametrize("name", ["f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
+                                  "pt_double", "scalar_mul", "tree_sum"])
+def test_chip_smoke_names_each_kernel_its_source_and_what_it_replaces(name):
+    cs = _chip_smoke()
+    source, replaces = cs.REPLACES[name]
+    with open(os.path.join(ROOT, source)) as fh:
+        text = fh.read()
+    assert "__global__" in text and f"bppp_{name}" in text
+    path, line = replaces.split(":")
+    with open(os.path.join(ROOT, path)) as fh:
+        lines = fh.readlines()
+    assert "pl.pallas_call(" in lines[int(line) - 1], lines[int(line) - 1]
+    assert name in cs.MAIN_ROW and any(name in ks for ks in cs.PATH_KERNELS.values())
+    assert any(name in mod.LAUNCHES and name in mod.PLAIN_CALLS for mod in cs.COUNTERS)
+
+
+def test_chip_smoke_holds_every_small_msm_point_count_against_the_plain_version():
+    """K4 is compiled once per point count D; the paths reach D = 1, 2, 4
+    and 5. The kernels phase runs all of 1..DMAX."""
+    import inspect
+
+    cs = _chip_smoke()
+    src = inspect.getsource(cs.phase_kernels)
+    assert "for D in range(1, cuda_msm.DMAX + 1)" in src
+    assert "check_msm_small(gen, dev, BATCH, D)" in src

@@ -1,10 +1,10 @@
-"""The slice as a whole: batched u64 range-proof verification through the
-port's collapsed verifier, on the CPU (plain versions of the kernels), at
-the fixture of tests/test_device_u64.py. Accept masks are compared exactly
-with the expected ones, with the port's copy of the host oracle, and —
-marked slow — with the JAX package's verifier; the challenges the two
-packages' transcripts derive from the same bytes are compared limb for
-limb.
+"""Batched u64 range-proof verification as a whole, through the port's
+collapsed verifier and through its mirror verifier, on the CPU (plain
+versions of the kernels), at the fixture of tests/test_device_u64.py.
+Accept masks are compared exactly with the expected ones, with each other,
+with the port's copy of the host oracle, and — marked slow — with the JAX
+package's verifier; the challenges the two packages' transcripts derive
+from the same bytes are compared limb for limb.
 
 All tampered and malformed cases ride as lanes of ONE batch (each case is
 a pair of lanes: the fixture's two proofs with the case's tamper applied
@@ -115,20 +115,24 @@ def fixture():
     return public, lanes, pb, cb
 
 
-@pytest.fixture(scope="module")
-def masks(fixture):
-    """ONE verify call over all cases -> {name: accept mask of its pair}."""
+def _case_masks(fixture, fast: bool, names=CASE_NAMES):
+    """ONE verify call over the named cases -> {name: accept mask of its pair}."""
     _, _, pb, cb = fixture
     cases = _cases(pb)
     assert list(cases) == CASE_NAMES
-    B = 2 * len(cases)
+    B = 2 * len(names)
     _, dev, _ = u64_fixture("device u64", B, device="cpu", tables="never")
-    big = _cat([cases[n][0] for n in CASE_NAMES])
+    big = _cat([cases[n][0] for n in names])
     ok = dev.verify(
-        cb.repeat(1, len(cases)), Transcript(LABEL, batch=(B,), device="cpu"), big, fast=True
+        cb.repeat(1, len(names)), Transcript(LABEL, batch=(B,), device="cpu"), big, fast=fast
     )
     assert ok.dtype == torch.bool and ok.shape == (B,)
-    return {n: ok[2 * i : 2 * i + 2].tolist() for i, n in enumerate(CASE_NAMES)}, cases
+    return {n: ok[2 * i : 2 * i + 2].tolist() for i, n in enumerate(names)}, cases
+
+
+@pytest.fixture(scope="module")
+def masks(fixture):
+    return _case_masks(fixture, fast=True)
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
@@ -173,13 +177,22 @@ def test_frozen_fixture_accepts_with_tables():
     assert ok.tolist() == [True, False, False]
 
 
-def test_mirror_verifier_is_a_later_slice(fixture):
-    _, _, pb, cb = fixture
-    _, dev, _ = u64_fixture("device u64", 2, device="cpu", tables="never")
-    with pytest.raises(NotImplementedError, match="mirror verifier"):
-        dev.verify(cb, Transcript(LABEL, batch=(2,), device="cpu"), pb, fast=False)
-    with pytest.raises(NotImplementedError, match="mirror verifier"):
-        dev.verify(cb, Transcript(LABEL, batch=(2,), device="cpu"), pb)
+def test_mirror_verifier_is_a_later_slice(fixture, masks):
+    """The mirror verifier (`fast=False`; the name of this test dates from
+    when the port had only the collapsed verifier) folds the generators
+    round by round with the ladder and accepts exactly what
+    the collapsed verifier accepts: on the valid pair, on each tampered
+    proof and on a lane of garbage points (which the ladder must carry
+    without raising) the two masks are equal, and equal to the expected
+    one. The other malformed cases are decided by the wire checks, which
+    run before the two verifiers part ways. One call, ten lanes: the plain
+    ladder's cost on the CPU grows with the lanes."""
+    names = ["valid", "tampered_r", "tampered_l", "tampered_middle_x", "garbage_points"]
+    mirror, cases = _case_masks(fixture, fast=False, names=names)
+    fast, _ = masks
+    for name in names:
+        assert mirror[name] == cases[name][1], name
+        assert mirror[name] == fast[name], name
 
 
 def test_fixture_rejects_bad_tables_argument():
