@@ -2,8 +2,9 @@
 
 The system is a proof-system library; its "models" are the protocol
 instantiations a user actually runs. The port carries the batched u64
-range proof — prover and both verifiers — and fixture helpers to stand up
-an instance and a batch of prover inputs from a seed.
+range proof — prover and both verifiers — the standalone weight-norm
+linear argument, and fixture helpers to stand up an instance and a batch
+of prover inputs from a seed.
 """
 
 from typing import NamedTuple
@@ -21,9 +22,41 @@ __all__ = [
     "ReciprocalWitnessDev",
     "U64RangeProofDevice",
     "WNLADevice",
+    "WNLAFixture",
+    "WNLA_DISTINCT",
+    "WNLA_LABEL",
     "u64_fixture",
     "u64_prove_batch",
+    "wnla_fixture",
 ]
+
+
+def _table_width(tables, device):
+    """The window width `tables` asks for: "auto" -> the default width on
+    a CUDA device and None on the CPU (the eager build is slow there),
+    "never" -> None, an int -> that width."""
+    import torch
+
+    from ..ops.fixed_base import DEFAULT_W
+
+    if tables == "auto":
+        return DEFAULT_W if torch.device(device).type == "cuda" else None
+    if tables == "never":
+        return None
+    if isinstance(tables, int) and not isinstance(tables, bool):
+        return tables
+    raise ValueError(f"tables must be 'auto', 'never' or a window width, got {tables!r}")
+
+
+def _tile_lanes(a, B: int, device):
+    """(..., n) int64 array of n distinct lanes -> (..., B) int64 tensor on
+    `device` in which lane b holds lane b % n."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.int64))
+    reps = -(-B // t.shape[-1])
+    return t.repeat((1,) * (t.ndim - 1) + (reps,))[..., :B].contiguous().to(device)
 
 
 def u64_fixture(seed: str, B: int, device="cuda", tables="auto"):
@@ -34,12 +67,9 @@ def u64_fixture(seed: str, B: int, device="cuda", tables="auto"):
     width when `device` is a CUDA device and none on the CPU (the eager
     build is slow there); "never" skips them; an int builds them at that
     window width on either device."""
-    import torch
-
     from ..oracle import curve as oc
     from ..oracle.u64 import U64RangeProof
     from ..ops import curve as dcv
-    from ..ops.fixed_base import DEFAULT_W
     from ..protocol import convert as cv
     from ..protocol.u64 import build_u64_tables
     from ..utils.rng import SeededRng
@@ -49,15 +79,7 @@ def u64_fixture(seed: str, B: int, device="cuda", tables="auto"):
     g_vec = [oc.GENERATOR.mul(rng.scalar()) for _ in range(16)]
     h_vec = [oc.GENERATOR.mul(rng.scalar()) for _ in range(32)]
     public = U64RangeProof(g=g, g_vec=g_vec, h_vec=h_vec)
-
-    if tables == "auto":
-        w_bits = DEFAULT_W if torch.device(device).type == "cuda" else None
-    elif tables == "never":
-        w_bits = None
-    elif isinstance(tables, int) and not isinstance(tables, bool):
-        w_bits = tables
-    else:
-        raise ValueError(f"tables must be 'auto', 'never' or a window width, got {tables!r}")
+    w_bits = _table_width(tables, device)
 
     tables_val = None
     if w_bits is not None:
@@ -94,7 +116,6 @@ def u64_prove_batch(rng, xs, B: int, device="cuda") -> ProveBatch:
     proof), and the distinct lanes are tiled over the batch: lane b holds
     lane b % len(xs)."""
     import numpy as np
-    import torch
 
     from ..ops import field as f
     from ..protocol import convert as cv
@@ -112,10 +133,86 @@ def u64_prove_batch(rng, xs, B: int, device="cuda") -> ProveBatch:
     )
     s_limbs = f.ints_to_limbs([ln["s"] for ln in lanes])  # (16, n)
     blind = cv.scalar_cols([ln["draws"] for ln in lanes])  # (16, 52, n)
-    reps = -(-B // len(lanes))
+    return ProveBatch(x_words=_tile_lanes(words, B, device), s=_tile_lanes(s_limbs, B, device),
+                      blind=_tile_lanes(blind, B, device), lanes=lanes)
+
+
+# the JAX package's WNLA size tests (`tests/test_device_wnla_sizes.py::_build`):
+# distinct lanes per instance family, and the transcript label of their proofs
+WNLA_DISTINCT = 2
+WNLA_LABEL = b"wnla test"
+
+
+class WNLAFixture(NamedTuple):
+    """A standalone WNLA instance family over B lanes and what the host
+    knows about its distinct lanes."""
+
+    lanes: list  # per distinct lane: dict(wnla, l, n, com, proof) — oracle objects
+    dev: WNLADevice  # batched over B lanes; lane b holds distinct lane b % len(lanes)
+    l: object  # (16, sz_l, B) int64 limbs
+    n: object  # (16, sz_n, B)
+    com: object  # PointJ (16, B): the lanes' commitments
+    label: bytes  # the transcript label of the oracle proofs
+
+
+def wnla_fixture(seed: str, sz_l: int, sz_n: int, B: int, device="cuda",
+                 tables="auto") -> WNLAFixture:
+    """Host-side setup of a standalone WNLA at |l| = sz_l, |n| = sz_n:
+    seeded generators g, g_vec (sz_n), h_vec (sz_l); per distinct lane a
+    public c (sz_l), rho, mu = rho^2 and a witness l, n, all drawn from
+    `SeededRng(seed)` in the order of the JAX package's
+    `tests/test_device_wnla_sizes.py::_build`; each lane's commitment and
+    its oracle proof under `WNLA_LABEL`. The `WNLA_DISTINCT` distinct lanes
+    are tiled over B.
+
+    tables: as for `u64_fixture` — fixed-base window tables over
+    [g | h_vec | g_vec] for `verify_fast` and the fast prover."""
+    from ..ops import curve as dcv
+    from ..ops import field as f
+    from ..ops.fixed_base import build_tables
+    from ..oracle import curve as oc
+    from ..oracle.field import fn_mul
+    from ..oracle.merlin import Transcript as HostTranscript
+    from ..oracle.wnla import WNLA
+    from ..protocol import convert as cv
+    from ..utils.rng import SeededRng
+
+    rng = SeededRng(seed)
+    g = oc.GENERATOR.mul(rng.scalar())
+    g_vec = [oc.GENERATOR.mul(rng.scalar()) for _ in range(sz_n)]
+    h_vec = [oc.GENERATOR.mul(rng.scalar()) for _ in range(sz_l)]
+    lanes = []
+    for _ in range(WNLA_DISTINCT):
+        c = rng.scalars(sz_l)
+        rho = rng.scalar()
+        l = rng.scalars(sz_l)
+        n = rng.scalars(sz_n)
+        wnla = WNLA(g=g, g_vec=g_vec, h_vec=h_vec, c=c, rho=rho, mu=fn_mul(rho, rho))
+        com = wnla.commit(l, n)
+        proof = wnla.prove(com, HostTranscript(WNLA_LABEL), l, n)
+        lanes.append(dict(wnla=wnla, l=l, n=n, com=com, proof=proof))
 
     def tile(a):
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        return t.repeat((1,) * (t.ndim - 1) + (reps,))[..., :B].contiguous().to(device)
+        return _tile_lanes(a, B, device)
 
-    return ProveBatch(x_words=tile(words), s=tile(s_limbs), blind=tile(blind), lanes=lanes)
+    w_bits = _table_width(tables, device)
+    tab = None
+    if w_bits is not None:
+        tab = build_tables(dcv.from_int_points([g] + h_vec + g_vec, device=device), w_bits)
+    dev = WNLADevice(
+        g=cv.point_batched(g, B, device=device),
+        g_vec=cv.points_batched(g_vec, B, device=device),
+        h_vec=cv.points_batched(h_vec, B, device=device),
+        c_vec=tile(cv.scalar_cols([ln["wnla"].c for ln in lanes])),
+        rho=tile(f.ints_to_limbs([ln["wnla"].rho for ln in lanes])),
+        mu=tile(f.ints_to_limbs([ln["wnla"].mu for ln in lanes])),
+        tables=tab,
+    )
+    com = dcv.PointJ(*(tile(f.ints_to_limbs([getattr(ln["com"], a) for ln in lanes]))
+                       for a in "xyz"))
+    return WNLAFixture(
+        lanes=lanes, dev=dev,
+        l=tile(cv.scalar_cols([ln["l"] for ln in lanes])),
+        n=tile(cv.scalar_cols([ln["n"] for ln in lanes])),
+        com=com, label=WNLA_LABEL,
+    )

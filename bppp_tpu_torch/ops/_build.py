@@ -24,7 +24,7 @@ import time
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _ROOT = os.path.join(os.path.dirname(_CSRC), "_build")
 
-SOURCES = ("keccak", "pow", "curve", "fixed_msm", "msm_small", "ladder")
+SOURCES = ("keccak", "pow", "curve", "fixed_msm", "msm_small", "msm_small_u4", "ladder")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,9 +1,12 @@
-"""Whole-loop kernels: the fixed-window exponentiation (K2) and the GLV +
-signed-window small MSM (K4).
+"""Whole-loop kernels: the fixed-window exponentiation (K2) and the three
+shared-window small MSMs — GLV + signed digits (K4), GLV + unsigned digits
+(K8) and plain unsigned windows (K9).
 
-Counterpart of `bppp_tpu/ops/pallas_msm.py` (its `pow_const_flat` and
-`msm_small_wnaf_flat`; its ladder and tree are in `ops/cuda_ladder.py`,
-its two non-default small-MSM variants are not ported yet). Wrappers take and return int64
+Counterpart of `bppp_tpu/ops/pallas_msm.py` (its `pow_const_flat`,
+`msm_small_wnaf_flat`, `msm_small_glv_flat` and `msm_small_flat`; its
+ladder and tree are in `ops/cuda_ladder.py`). `curve.msm` picks one of the
+three small MSMs per call by the reference's switches
+(`curve.small_msm_variant`). Wrappers take and return int64
 limb tensors in the interchange layout. On a CUDA tensor a wrapper
 narrows to int32 storage, launches its kernel on the current stream and
 widens the result, without synchronising; on a CPU tensor — and only
@@ -24,6 +27,25 @@ in one launch with the accumulator in registers; the per-lane tables
 (a collision degrades to the identity, unreachable for challenge
 scalars), the plain version uses complete adds: the two agree as POINTS
 (affine coordinates, compressed bytes), not in (X, Y, Z).
+
+K9 `msm_small` — replaces `pallas_msm._msm_small_kernel`, the small MSM
+under `BPPP_GLV=0`. sum_i [k_i] P_i over D <= 3 points from the full
+256-bit scalars: tables [0..15] P_i, then 64 windows MSB-first, 4 doubles
+and D incomplete adds each. Bound on an H100: operations (256 doubles +
+64 D adds + 14 D table operations per lane). The digits are peeled from
+the scalars' words in registers, so nothing recodes them beforehand.
+
+K8 `msm_small_glv` — replaces `pallas_msm._msm_small_glv_kernel`, the
+small MSM under `BPPP_WNAF=0` with GLV on. The same tables and 33 windows
+over the 2D unsigned GLV magnitude halves: odd halves take beta * x of
+the selected entry, a per-lane mask negates y. Bound on an H100:
+operations (132 doubles + 66 D adds + 14 D table operations, and one beta
+multiply per live odd-half digit, per lane).
+
+K8 and K9 keep 16-entry tables (1.5 KB of local memory per point), so
+they take at most `DMAX_U4` = 3 points per call where K4's 8-entry tables
+take `DMAX` = 5; as for K4, their adds are incomplete and they agree with
+their plain versions as points.
 """
 
 from __future__ import annotations
@@ -40,10 +62,12 @@ from .glv import BETA, GLV_WINDOWS
 
 _VP = _build.VP
 
-LAUNCHES = {"pow_const": 0, "msm_small_wnaf": 0}
-PLAIN_CALLS = {"pow_const": 0, "msm_small_wnaf": 0}
+LAUNCHES = {"pow_const": 0, "msm_small_wnaf": 0, "msm_small_glv": 0, "msm_small": 0}
+PLAIN_CALLS = {"pow_const": 0, "msm_small_wnaf": 0, "msm_small_glv": 0, "msm_small": 0}
 
-DMAX = 5  # points per kernel call: the table is D * 768 bytes of local memory
+# points per kernel call, bounded by the per-thread tables in local memory:
+DMAX = 5  # K4, tables [1..8] P_i: D * 768 bytes
+DMAX_U4 = 3  # K8 and K9, tables [0..15] P_i: D * 1536 bytes
 
 
 def _pow_digits(e: int) -> list[int]:
@@ -91,17 +115,88 @@ def pow_const(x, e: int, kind: str):
 # -- K4 --------------------------------------------------------------------------
 
 
-def _check_msm_args(px, py, pz, dig):
+def _check_points(px, py, pz, dmax: int, what: str):
     D, L16, B = px.shape
     if L16 != 16 or py.shape != px.shape or pz.shape != px.shape:
         raise ValueError("points must be three (D, 16, B) tensors")
-    if not 1 <= D <= DMAX:
-        raise ValueError(f"msm_small_wnaf takes 1..{DMAX} points per call, got {D}")
+    if not 1 <= D <= dmax:
+        raise ValueError(f"{what} takes 1..{dmax} points per call, got {D}")
+    return D, B
+
+
+def _check_msm_args(px, py, pz, dig):
+    D, B = _check_points(px, py, pz, DMAX, "msm_small_wnaf")
     if dig.shape != (GLV_WINDOWS * 2 * D, B):
         raise ValueError(
             f"digit planes must be ({GLV_WINDOWS * 2 * D}, {B}), got {tuple(dig.shape)}"
         )
     return D, B
+
+
+def _check_k9_args(px, py, pz, k):
+    D, B = _check_points(px, py, pz, DMAX_U4, "msm_small")
+    if k.shape != (D, 16, B):
+        raise ValueError(f"msm_small: scalars must be ({D}, 16, {B}), got {tuple(k.shape)}")
+    return D, B
+
+
+def _check_k8_args(px, py, pz, mags, signs):
+    D, B = _check_points(px, py, pz, DMAX_U4, "msm_small_glv")
+    if mags.shape != (2 * D, 16, B):
+        raise ValueError(
+            f"msm_small_glv: magnitudes must be ({2 * D}, 16, {B}), got {tuple(mags.shape)}")
+    if signs.shape != (2 * D, B):
+        raise ValueError(
+            f"msm_small_glv: negate masks must be ({2 * D}, {B}), got {tuple(signs.shape)}")
+    return D, B
+
+
+def _tables_plain(px, py, pz, n: int):
+    """Entry e = [e] P_i for e < n, entry 0 the identity (0, 1, 0), by
+    complete adds: three (n, 16, D, B) coordinate tables."""
+    P = tuple(c.movedim(0, 1) for c in (px, py, pz))  # (16, D, B)
+    ents = [P]
+    for _ in range(n - 2):
+        ents.append(cuda_curve.pt_add_plain(*ents[-1], *P))
+    zero = torch.zeros_like(P[0])
+    one = zero.clone()
+    one[0] = 1
+    return [torch.stack([i] + [e[c] for e in ents], dim=0)
+            for c, i in enumerate((zero, one, zero))]
+
+
+def _select_plain(tab, digit, point):
+    """tab[digit[j]] of point point[j], for every j: digit (M, B) -> three
+    (16, M, B)."""
+    M, B = digit.shape
+    idx = digit[None, None].expand(1, 16, M, B)
+    return tuple(torch.gather(c[:, :, point], 0, idx)[0] for c in tab)
+
+
+def _walk_plain(n_windows: int, entries, like):
+    """MSB-first shared walk with complete adds: 4 doubles per window (none
+    before the first), then the points `entries(w)` selects for window w —
+    three (16, M, B) — summed and added. `like`: a (16, B) tensor of the
+    lanes' shape and device."""
+    zero = torch.zeros_like(like)
+    one = zero.clone()
+    one[0] = 1
+    acc = (zero, one, zero)
+    for w in range(n_windows - 1, -1, -1):
+        if w != n_windows - 1:
+            for _ in range(4):
+                acc = cuda_curve.pt_double_plain(*acc)
+        acc = cuda_curve.pt_add_plain(*acc, *cuda_curve.tree_sum_plain(*entries(w)))
+    return acc
+
+
+def _beta_neg(q, odd, neg):
+    """x times beta where `odd`, y negated where `neg`: (M,) and (M, B) bool."""
+    qx, qy, qz = q
+    beta = f._const(f.int_to_limbs(BETA), qx)
+    qx = torch.where(odd[:, None], f.fp_mul(qx, beta), qx)
+    qy = torch.where(neg, f.fp_neg(qy), qy)
+    return qx, qy, qz
 
 
 def msm_small_wnaf_plain(px, py, pz, dig):
@@ -111,35 +206,51 @@ def msm_small_wnaf_plain(px, py, pz, dig):
     where the plane's bit 4 is set, magnitude 0 the identity."""
     PLAIN_CALLS["msm_small_wnaf"] += 1
     D, B = _check_msm_args(px, py, pz, dig)
-    P = tuple(c.movedim(0, 1) for c in (px, py, pz))  # (16, D, B)
-    ents = [P]
-    for _ in range(7):
-        ents.append(cuda_curve.pt_add_plain(*ents[-1], *P))
-    zero = torch.zeros_like(P[0])
-    one = zero.clone()
-    one[0] = 1
-    # entry 0 = identity, entries 1..8 = [d] P_i: (9, 16, D, B)
-    tab = [torch.stack([i] + [e[c] for e in ents], dim=0)
-           for c, i in enumerate((zero, one, zero))]
-    beta = f._const(f.int_to_limbs(BETA), zero)
-    planes = dig.reshape(GLV_WINDOWS, D, 2, B)
-    acc = (zero[:, 0], one[:, 0], zero[:, 0])
-    for w in range(GLV_WINDOWS - 1, -1, -1):
-        if w != GLV_WINDOWS - 1:
-            for _ in range(4):
-                acc = cuda_curve.pt_double_plain(*acc)
-        halves = []
-        for half in range(2):
-            plane = planes[w, :, half]  # (D, B)
-            idx = (plane & 15)[None, None].expand(1, 16, D, B)
-            qx, qy, qz = (torch.gather(c, 0, idx)[0] for c in tab)
-            if half:
-                qx = f.fp_mul(qx, beta)
-            qy = torch.where((plane >> 4) != 0, f.fp_neg(qy), qy)
-            halves.append((qx, qy, qz))
-        qx, qy, qz = (torch.cat(pair, dim=1) for pair in zip(*halves))
-        acc = cuda_curve.pt_add_plain(*acc, *cuda_curve.tree_sum_plain(qx, qy, qz))
-    return acc
+    tab = _tables_plain(px, py, pz, 9)
+    planes = dig.reshape(GLV_WINDOWS, 2 * D, B)
+    point = torch.arange(2 * D, device=px.device) // 2
+    odd = torch.arange(2 * D, device=px.device) % 2 == 1
+
+    def entries(w):
+        q = _select_plain(tab, planes[w] & 15, point)
+        return _beta_neg(q, odd, (planes[w] >> 4) != 0)
+
+    return _walk_plain(GLV_WINDOWS, entries, px[0])
+
+
+def msm_small_plain(px, py, pz, k):
+    """K9's walk in eager PyTorch, with complete adds: tables [0..15] P_i,
+    then 64 windows MSB-first, 4 doubles and the D entries the scalars'
+    digits select."""
+    PLAIN_CALLS["msm_small"] += 1
+    D, _ = _check_k9_args(px, py, pz, k)
+    tab = _tables_plain(px, py, pz, 16)
+    point = torch.arange(D, device=px.device)
+    kk = k.movedim(0, 1)  # (16, D, B)
+
+    def entries(w):
+        return _select_plain(tab, (kk[w // 4] >> (4 * (w % 4))) & 15, point)
+
+    return _walk_plain(64, entries, px[0])
+
+
+def msm_small_glv_plain(px, py, pz, mags, signs):
+    """K8's walk in eager PyTorch, with complete adds: tables [0..15] P_i,
+    then 33 windows MSB-first, 4 doubles and the 2D entries the magnitude
+    halves' digits select — x times beta for the odd halves, y negated
+    where the half's mask is set."""
+    PLAIN_CALLS["msm_small_glv"] += 1
+    D, _ = _check_k8_args(px, py, pz, mags, signs)
+    tab = _tables_plain(px, py, pz, 16)
+    point = torch.arange(2 * D, device=px.device) // 2
+    odd = torch.arange(2 * D, device=px.device) % 2 == 1
+    mm = mags.movedim(0, 1)  # (16, 2D, B)
+
+    def entries(w):
+        q = _select_plain(tab, (mm[w // 4] >> (4 * (w % 4))) & 15, point)
+        return _beta_neg(q, odd, signs != 0)
+
+    return _walk_plain(GLV_WINDOWS, entries, px[0])
 
 
 def msm_small_wnaf(px, py, pz, dig):
@@ -161,4 +272,45 @@ def msm_small_wnaf(px, py, pz, dig):
              *(t.data_ptr() for t in outs), D, B, _build.stream())
     LAUNCHES["msm_small_wnaf"] += 1
     _build.check(err, "msm_small_wnaf")
+    return tuple(o.to(torch.int64) for o in outs)
+
+
+# -- K9, K8 ----------------------------------------------------------------------
+
+
+def msm_small(px, py, pz, k):
+    """px, py, pz: (D, 16, B) int64 Jacobian coordinates of D <= 3 points
+    per lane; k: (D, 16, B) int64 canonical F_n limbs of their scalars.
+    -> three (16, B) int64: the Jacobian sum per lane."""
+    if not px.is_cuda:
+        return msm_small_plain(px, py, pz, k)
+    D, B = _check_k9_args(px, py, pz, k)
+    ins = [flat_i32(c, c.shape) for c in (px, py, pz, k)]
+    outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
+    fn = _build.bind(
+        "msm_small_u4", "bppp_msm_small", [_VP] * 7 + [ctypes.c_int, ctypes.c_int, _VP]
+    )
+    err = fn(*(t.data_ptr() for t in ins + outs), D, B, _build.stream())
+    LAUNCHES["msm_small"] += 1
+    _build.check(err, "msm_small")
+    return tuple(o.to(torch.int64) for o in outs)
+
+
+def msm_small_glv(px, py, pz, mags, signs):
+    """px, py, pz: (D, 16, B) int64 Jacobian coordinates of D <= 3 points
+    per lane; mags: (2D, 16, B) int64 GLV magnitude halves below 2^132,
+    half j = 2i + (0 for k1, 1 for k2) of point i; signs: (2D, B) int64,
+    nonzero where half j is negative (`glv.glv_halves` makes both).
+    -> three (16, B) int64: the Jacobian sum per lane."""
+    if not px.is_cuda:
+        return msm_small_glv_plain(px, py, pz, mags, signs)
+    D, B = _check_k8_args(px, py, pz, mags, signs)
+    ins = [flat_i32(c, c.shape) for c in (px, py, pz, mags, signs)]
+    outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
+    fn = _build.bind(
+        "msm_small_u4", "bppp_msm_small_glv", [_VP] * 8 + [ctypes.c_int, ctypes.c_int, _VP]
+    )
+    err = fn(*(t.data_ptr() for t in ins + outs), D, B, _build.stream())
+    LAUNCHES["msm_small_glv"] += 1
+    _build.check(err, "msm_small_glv")
     return tuple(o.to(torch.int64) for o in outs)

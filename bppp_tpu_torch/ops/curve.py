@@ -18,6 +18,7 @@ question which route `msm` over many points should take on this card.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -125,17 +126,38 @@ def pt_sum(p: PointJ, axis: int = 1) -> PointJ:
     return PointJ(*cuda_ladder.tree_sum(*p))
 
 
+def small_msm_variant() -> str:
+    """The small-MSM kernel `msm` takes, read from the environment on every
+    call with the reference's meaning (`bppp_tpu/ops/curve.py:449-451` and
+    `:491-519`; a switch is off only when it is "0"):
+
+      BPPP_GLV=0                 -> "msm_small"       K9, plain 64-window walk
+      BPPP_WNAF=0 (GLV on)       -> "msm_small_glv"   K8, GLV, unsigned digits
+      otherwise (the default)    -> "msm_small_wnaf"  K4, GLV, signed digits
+
+    The switches choose between three kernels, never between a kernel and
+    a plain version. The name is the kernel's wrapper in `ops/cuda_msm.py`
+    and its launch-counter key."""
+    if os.environ.get("BPPP_GLV", "1") == "0":
+        return "msm_small"
+    if os.environ.get("BPPP_WNAF", "1") == "0":
+        return "msm_small_glv"
+    return "msm_small_wnaf"
+
+
 def msm(points: PointJ, scalars) -> PointJ:
     """Multi-scalar multiplication sum_i [s_i] P_i: points coords
     (16, L, *batch), scalars (16, L, *batch) F_n limbs, broadcast against
     each other. Up to `MSM_SMALL_MAX` points per lane — the verifier's
-    per-round folds and commitment chain — take the shared-window kernel:
-    each scalar is split by the GLV endomorphism (`ops/glv.py`) and
-    recoded to signed 4-bit digits, one 33-window walk does the rest
-    (`ops/cuda_msm.msm_small_wnaf`), and more than `cuda_msm.DMAX` points
-    run as chunks combined with one complete add each. More points run as
-    one ladder over all L * batch lanes and one sum over L."""
-    from . import cuda_msm, glv
+    per-round folds and commitment chain — take a shared-window kernel,
+    the one `small_msm_variant()` names: by default each scalar is split
+    by the GLV endomorphism (`ops/glv.py`) and recoded to signed 4-bit
+    digits, and one 33-window walk does the rest
+    (`ops/cuda_msm.msm_small_wnaf`). More points than the kernel takes per
+    call (`cuda_msm.DMAX`, `DMAX_U4`) run as chunks combined with one
+    complete add each. More than `MSM_SMALL_MAX` points run as one ladder
+    over all L * batch lanes and one sum over L."""
+    from . import cuda_msm
 
     L = points.x.shape[1]
     if L < 1:
@@ -152,20 +174,27 @@ def msm(points: PointJ, scalars) -> PointJ:
     pts = [c.expand(shape).reshape(16, L, prod) for c in points]
     kk = scalars.expand(shape).reshape(16, L, prod)
 
+    variant = small_msm_variant()
+    dmax = cuda_msm.DMAX if variant == "msm_small_wnaf" else cuda_msm.DMAX_U4
     acc = None
-    for lo in range(0, L, cuda_msm.DMAX):
-        hi = min(lo + cuda_msm.DMAX, L)
-        D = hi - lo
-        m1, n1, m2, n2 = glv.decompose(kk[:, lo:hi])
-        d1 = glv.wnaf_digits(m1, n1)  # (W, D, prod)
-        d2 = glv.wnaf_digits(m2, n2)
-        # plane index = w * 2D + j, halves interleaved k1, k2 per point
-        dig = torch.stack([d1, d2], dim=2).reshape(glv.GLV_WINDOWS * 2 * D, prod)
+    for lo in range(0, L, dmax):
+        hi = min(lo + dmax, L)
         coords = [c[:, lo:hi].movedim(1, 0).contiguous() for c in pts]  # (D, 16, prod)
-        part = PointJ(*cuda_msm.msm_small_wnaf(*coords, dig))
+        part = PointJ(*_msm_small_call(variant, coords, kk[:, lo:hi]))
         # chunks are independent random points: complete add
         acc = part if acc is None else pt_add(acc, part)
     return PointJ(*(c.reshape((16,) + batch) for c in acc))
+
+
+def _msm_small_call(variant: str, coords, k):
+    """One small-MSM kernel call: coords three (D, 16, B), k (16, D, B)."""
+    from . import cuda_msm, glv
+
+    if variant == "msm_small":
+        return cuda_msm.msm_small(*coords, k.movedim(1, 0).contiguous())
+    if variant == "msm_small_glv":
+        return cuda_msm.msm_small_glv(*coords, *glv.glv_halves(k))
+    return cuda_msm.msm_small_wnaf(*coords, glv.wnaf_planes(k))
 
 
 def _tree_sum_axis1(p: PointJ) -> PointJ:

@@ -110,3 +110,25 @@ def decompose(k):
     m1 = torch.where(neg1, f.fn_neg(k1), k1)
     m2 = torch.where(neg2, f.fn_neg(k2), k2)
     return m1, neg1, m2, neg2
+
+
+def wnaf_planes(k):
+    """K4's digit input: k (16, D, B) canonical F_n limbs -> (33 * 2D, B)
+    int64 signed-digit planes, plane index w * 2D + j with the halves of
+    point i interleaved, j = 2i (k1), 2i + 1 (k2)."""
+    D, B = k.shape[1:]
+    m1, n1, m2, n2 = decompose(k)
+    d = torch.stack([wnaf_digits(m1, n1), wnaf_digits(m2, n2)], dim=2)  # (W, D, 2, B)
+    return d.reshape(GLV_WINDOWS * 2 * D, B)
+
+
+def glv_halves(k):
+    """K8's input: k (16, D, B) canonical F_n limbs -> (mags (2D, 16, B)
+    int64 magnitudes, signs (2D, B) int64 0/1 negate masks), half
+    j = 2i (k1), 2i + 1 (k2) of point i — the layout of
+    `bppp_tpu/ops/curve.py::_msm_small_call`."""
+    D, B = k.shape[1:]
+    m1, n1, m2, n2 = decompose(k)
+    mags = torch.stack([m1, m2], dim=2).reshape(16, 2 * D, B).movedim(1, 0).contiguous()
+    signs = torch.stack([n1, n2], dim=1).reshape(2 * D, B).to(f.DTYPE)
+    return mags, signs

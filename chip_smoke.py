@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --kernels-only
-    python3 chip_smoke.py --profile [--path verify|mirror|prove]
+    python3 chip_smoke.py --profile [--path verify|mirror|prove|verify_glv|...]
                                      # where one batch of that path spends its time
 
 Builds the CUDA kernels of `bppp_tpu_torch/csrc/` from source, holds each
@@ -17,10 +17,20 @@ and drives the port's paths at a batch of 1024 u64 range proofs:
           the fast verifier's;
   prove   `commit_value` + `prove`: the proof bytes of the distinct lanes
           equal the host oracle's under replayed blinding draws, and both
-          verifiers accept every produced proof.
+          verifiers accept every produced proof;
+  variants  the three paths again under BPPP_WNAF=0 (small MSMs through
+          K8, `msm_small_glv`) and under BPPP_GLV=0 (K9, `msm_small`): the
+          same masks, the default prover's bytes on every lane, and K4
+          launched on none of them;
+  wnla    the standalone weight-norm linear argument at |l| = |n| = 16,
+          32 and 64: commit + prove with the distinct lanes' bytes equal to
+          the oracle's, both verifiers on honest and tampered proofs.
 
 For each path it checks that every kernel of that path was launched and
-that no plain version was. Every phase prints one JSON line; any mismatch
+that no plain version was. The kernel comparison comes after the paths,
+at the u64 path's shapes and at every shape the paths gave K3 (each table
+and row subset), K6 (each lane count) and K7 (each point count), which
+are recorded as the paths run. Every phase prints one JSON line; any mismatch
 or exception ends the run with a non-zero exit code. There is no CPU
 route: without a CUDA device the script fails.
 
@@ -36,7 +46,9 @@ nothing) is counted from this run's inputs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -45,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-from bppp_tpu_torch.models import u64_fixture, u64_prove_batch
+from bppp_tpu_torch.models import u64_fixture, u64_prove_batch, wnla_fixture
 from bppp_tpu_torch.ops import _build
 from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_ladder, cuda_msm
 from bppp_tpu_torch.ops import curve as dc
@@ -74,12 +86,55 @@ MAD_MUL_N = 64 + 75
 MULS_ADD, MULS_MIXED, MULS_DBL = 16, 11, 7
 
 COUNTERS = (cuda_keccak, cuda_msm, cuda_fixed_base, cuda_curve, cuda_ladder)
+
+
+@contextlib.contextmanager
+def switches(env: dict):
+    """Set the environment variables of `env` for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def variant_kernel(env: dict) -> str:
+    """The small-MSM kernel `curve.msm` takes under the switches of `env`."""
+    with switches(env):
+        return dc.small_msm_variant()
+
+
 # the kernels each path must launch (and no plain version)
 PATH_KERNELS = {
     "verify": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add", "pt_double"),
     "mirror": ("f1600", "pow_const", "msm_small_wnaf", "pt_add", "scalar_mul", "tree_sum"),
     "prove": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add"),
 }
+BASE_PATHS = tuple(PATH_KERNELS)
+# the kernels a path must not launch
+PATH_BANNED = {}
+# the non-default small-MSM switches: BPPP_WNAF=0 takes K8, BPPP_GLV=0 K9
+VARIANTS = {"glv": {"BPPP_WNAF": "0"}, "noglv": {"BPPP_GLV": "0"}}
+# (the variant runs reuse the verify phase's instance: its table build, the
+# only user of pt_double, is not part of them)
+for _tag, _env in VARIANTS.items():
+    for _path in BASE_PATHS:
+        PATH_KERNELS[f"{_path}_{_tag}"] = tuple(
+            variant_kernel(_env) if k == "msm_small_wnaf" else k for k in PATH_KERNELS[_path]
+            if k != "pt_double")
+        PATH_BANNED[f"{_path}_{_tag}"] = ("msm_small_wnaf",)
+# the standalone WNLA at |l| = |n| = 16, 32, 64: commit (ladder + sum over
+# 1 + 2 sz points), prove, mirror verify, collapsed verify
+WNLA_SIZES = (16, 32, 64)
+TAMPERED = 5  # the lane whose WNLA proof the wnla phase tampers
+for _sz in WNLA_SIZES:
+    PATH_KERNELS[f"wnla{_sz}"] = ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
+                                  "scalar_mul", "tree_sum")
 
 
 def emit(phase: str, **kw) -> None:
@@ -152,9 +207,12 @@ def rand_scalars(gen, shape, modulus: int, dev):
     """Uniform values below `modulus` as (16, *shape) limb tensors."""
     n = int(np.prod(shape))
     raw = gen.integers(0, 1 << 16, size=(16, n), dtype=np.int64)
-    vals = f.limbs_to_ints(raw)
-    limbs = f.ints_to_limbs([v % modulus for v in vals])
-    return torch.from_numpy(limbs).reshape((16,) + tuple(shape)).to(dev)
+    # p and n exceed 0xFFFF * 2^240: only a value whose top limb is 0xFFFF
+    # can reach the modulus, so only those lanes are reduced on the host
+    top = np.nonzero(raw[15] == 0xFFFF)[0]
+    if top.size:
+        raw[:, top] = f.ints_to_limbs([v % modulus for v in f.limbs_to_ints(raw[:, top])])
+    return torch.from_numpy(raw).reshape((16,) + tuple(shape)).to(dev)
 
 
 def rand_points(gen, shape, dev):
@@ -165,8 +223,12 @@ def rand_points(gen, shape, dev):
     pts = dc.from_int_points(base, device=dev)  # (16, 8)
     idx = torch.from_numpy(gen.integers(0, 8, size=n)).to(dev)
     p = dc.PointJ(*(c[:, idx] for c in pts))
-    # spread them: P <- 2P + base[j], a few rounds with fresh j
-    for _ in range(3):
+    # spread them: P <- 2P + base[j], rounds with fresh j. After r rounds a
+    # point is one of 8^(r + 1); with r = 3 two points of one lane were equal
+    # once in 4096, and a 1024-lane sum with incomplete adds (K7's contract,
+    # as the reference's) then met the doubling that the complete reduction
+    # it is also held against handles. With r = 10 it is once in 8.6e9.
+    for _ in range(10):
         j = torch.from_numpy(gen.integers(0, 8, size=n)).to(dev)
         p = dc.pt_add(dc.pt_double(p), dc.PointJ(*(c[:, j] for c in pts)))
     return dc.PointJ(*(c.reshape((16,) + tuple(shape)) for c in p))
@@ -284,64 +346,112 @@ def check_fixed(gen, dev, B, tables, tag):
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
 
-def check_msm_small(gen, dev, B, D):
+def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
+    """One of the three small-MSM kernels (K4, K8 or K9, by wrapper name)
+    at D points per lane against its plain version, on compressed bytes.
+    Lane 0 has zero scalars, lane 1 identity points, lane 2 the scalar
+    lambda on every point (GLV halves k1 = 0, k2 = 1)."""
     pts = rand_points(gen, (D, B), dev)
     kk = rand_scalars(gen, (D, B), N_INT, dev)
     kk[:, :, 0] = 0  # zero scalars
+    kk[:, :, 2] = torch.from_numpy(f.int_to_limbs(glv.LAMBDA)).to(dev)
     idl = dc.identity((D, B), device=dev)
     lane = torch.arange(B, device=dev)
     pts = dc.pt_select(lane == 1, idl, pts)  # identity points
-    m1, n1, m2, n2 = glv.decompose(kk)
-    dig = torch.stack([glv.wnaf_digits(m1, n1), glv.wnaf_digits(m2, n2)], dim=2)
-    dig = dig.reshape(glv.GLV_WINDOWS * 2 * D, B)
     coords = [c.movedim(1, 0).contiguous() for c in pts]  # (D, 16, B)
-    got = dc.PointJ(*cuda_msm.msm_small_wnaf(*coords, dig))
+    if kernel == "msm_small":
+        ins = [kk.movedim(1, 0).contiguous()]
+    elif kernel == "msm_small_glv":
+        ins = list(glv.glv_halves(kk))
+    else:
+        ins = [glv.wnaf_planes(kk)]
+    wrapper = getattr(cuda_msm, kernel)
+    plain = getattr(cuda_msm, f"{kernel}_plain")
+    got = dc.PointJ(*wrapper(*coords, *ins))
     lanes = plain_lanes(B, dev)
-    small = [c[:, :, lanes].contiguous() for c in coords]
-    sdig = dig[:, lanes].contiguous()
-    want, plain_ms = timed_once(lambda: cuda_msm.msm_small_wnaf_plain(*small, sdig))
+    small = [c[..., lanes].contiguous() for c in coords + ins]
+    want, plain_ms = timed_once(lambda: plain(*small))
     err = max_err(dc.compress(got)[:, lanes], dc.compress(dc.PointJ(*want)))
     assert bool(dc.pt_is_identity(got)[:2].all()), "zero scalars / identity points"
-    ms = time_ms(lambda: cuda_msm.msm_small_wnaf(*coords, dig))
-    live = int(((dig & 15) != 0).sum())
-    phi = int(((dig.reshape(glv.GLV_WINDOWS, D, 2, B)[:, :, 1] & 15) != 0).sum())
-    muls = (132 * MULS_DBL + D * (MULS_DBL + 6 * MULS_ADD)) * B + MULS_ADD * live + phi
-    nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
+    ms = time_ms(lambda: wrapper(*coords, *ins))
+    # work this run's data needs: the doubles of the walk and the table
+    # builds on every lane, one add per nonzero digit, one beta multiply per
+    # nonzero digit of an odd GLV half
+    table = D * (MULS_DBL + 13 * MULS_ADD)
+    if kernel == "msm_small":
+        digits = torch.stack([(kk[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])
+        muls = (256 * MULS_DBL + table) * B + MULS_ADD * int((digits != 0).sum())
+        nbytes = (4 * D + 3) * 16 * 4 * B
+    elif kernel == "msm_small_glv":
+        mags = ins[0].movedim(0, 1)  # (16, 2D, B)
+        digits = torch.stack([(mags[w // 4] >> (4 * (w % 4))) & 15 for w in range(glv.GLV_WINDOWS)])
+        live = int((digits != 0).sum())
+        phi = int((digits[:, 1::2] != 0).sum())
+        muls = (4 * glv.GLV_WINDOWS * MULS_DBL + table) * B + MULS_ADD * live + phi
+        nbytes = ((5 * D + 3) * 16 + 2 * D) * 4 * B
+    else:
+        dig = ins[0]
+        live = int(((dig & 15) != 0).sum())
+        phi = int(((dig.reshape(glv.GLV_WINDOWS, D, 2, B)[:, :, 1] & 15) != 0).sum())
+        muls = (4 * glv.GLV_WINDOWS * MULS_DBL + D * (MULS_DBL + 6 * MULS_ADD)) * B \
+            + MULS_ADD * live + phi
+        nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
-    return dict(name=f"msm_small_wnaf[D={D}]", err=err, ms=ms, plain_ms=plain_ms,
+    return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms,
                 plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
 
-def check_scalar_mul(gen, dev, B):
-    p = rand_points(gen, (B,), dev)
-    k = rand_scalars(gen, (B,), N_INT, dev)
+def check_scalar_mul(gen, dev, sizes):
+    """K6 at each lane count of `sizes`, each launch on the leading lanes of
+    one set of inputs, against ONE call of the plain version on the plain
+    lanes of every launch: the eager ladder is bound by its launches and
+    costs about as much for a thousand lanes as for 64. -> one row per size."""
+    top = max(sizes)
+    p = rand_points(gen, (top,), dev)
+    k = rand_scalars(gen, (top,), N_INT, dev)
     # lanes 0..4: k = 0, k = 1, k = n - 1, P = identity, a small scalar
     for lane, val in ((0, 0), (1, 1), (2, N_INT - 1), (4, 0x1F)):
         k[:, lane] = torch.from_numpy(f.int_to_limbs(val))[:, 0].to(dev)
-    p = dc.pt_select(torch.arange(B, device=dev) == 3, dc.identity((B,), device=dev), p)
-    got = cuda_ladder.scalar_mul(*p, k)
-    lanes = plain_lanes(B, dev)
-    small = [c[:, lanes].contiguous() for c in p]
-    ks = k[:, lanes].contiguous()
-    want, plain_ms = timed_once(lambda: cuda_ladder.scalar_mul_plain(*small, ks))
-    err = max_err([g[:, lanes] for g in got], want)
-    out = dc.PointJ(*got)
-    assert dc.pt_is_identity(out)[[0, 3]].all(), "k = 0 and P = identity must give the identity"
-    assert bool(dc.pt_eq(out, p)[1]), "k = 1 must give P"
-    assert bool(dc.pt_eq(out, dc.pt_neg(p))[2]), "k = n - 1 must give -P"
-    ms = time_ms(lambda: cuda_ladder.scalar_mul(*p, k))
-    # work this run's data needs: nothing for an identity point or a zero
-    # scalar; else the 14 table adds, the doubles below the top nonzero
-    # window and one add per nonzero window
-    digits = torch.stack([(k[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])  # (64, B)
-    live = ~dc.pt_is_identity(p) & (digits != 0).any(dim=0)
-    top = torch.where(digits != 0, torch.arange(64, device=dev)[:, None], 0).max(dim=0).values
-    adds = int((14 + (digits != 0).sum(dim=0))[live].sum())
-    dbls = int((4 * top)[live].sum())
-    b_ms, by = bound(7 * 16 * 4 * B, 2 * MAD_MUL_P * (MULS_ADD * adds + MULS_DBL * dbls))
-    return dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
-                bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+    p = dc.pt_select(torch.arange(top, device=dev) == 3, dc.identity((top,), device=dev), p)
+
+    def inputs(B):
+        return [c[:, :B].contiguous() for c in p] + [k[:, :B].contiguous()]
+
+    got_lanes, picks = [], []
+    for B in sizes:
+        ins = inputs(B)
+        got = cuda_ladder.scalar_mul(*ins)
+        out = dc.PointJ(*got)
+        assert dc.pt_is_identity(out)[[0, 3]].all(), "k = 0 and P = identity must give the identity"
+        assert bool(dc.pt_eq(out, dc.PointJ(*ins[:3]))[1]), "k = 1 must give P"
+        assert bool(dc.pt_eq(out, dc.pt_neg(dc.PointJ(*ins[:3])))[2]), "k = n - 1 must give -P"
+        lanes = plain_lanes(B, dev)
+        got_lanes.append([g[:, lanes] for g in got])
+        picks.append(lanes)
+    idx = torch.cat(picks)
+    small = [c[:, idx].contiguous() for c in p] + [k[:, idx].contiguous()]
+    want, plain_ms = timed_once(lambda: cuda_ladder.scalar_mul_plain(*small))
+    rows, off = [], 0
+    for B, got, lanes in zip(sizes, got_lanes, picks):
+        err = max_err(got, [w[:, off:off + len(lanes)] for w in want])
+        off += len(lanes)
+        ins = inputs(B)
+        ms = time_ms(lambda: cuda_ladder.scalar_mul(*ins))
+        # work this run's data needs: nothing for an identity point or a zero
+        # scalar; else the 14 table adds, the doubles below the top nonzero
+        # window and one add per nonzero window
+        kb = ins[3]
+        digits = torch.stack([(kb[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])  # (64, B)
+        live = ~dc.pt_is_identity(dc.PointJ(*ins[:3])) & (digits != 0).any(dim=0)
+        top_w = torch.where(digits != 0, torch.arange(64, device=dev)[:, None], 0).max(dim=0).values
+        adds = int((14 + (digits != 0).sum(dim=0))[live].sum())
+        dbls = int((4 * top_w)[live].sum())
+        b_ms, by = bound(7 * 16 * 4 * B, 2 * MAD_MUL_P * (MULS_ADD * adds + MULS_DBL * dbls))
+        rows.append(dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms,
+                         plain_B=len(idx), bound_ms=b_ms, bound_by=by, shape=[16, B],
+                         compared="limbs (one plain call over the plain lanes of every size)"))
+    return rows
 
 
 def check_tree_sum(gen, dev, L, B):
@@ -377,9 +487,63 @@ def round0_r_positions():
         + tuple(1 + lh + 2 * j + 1 for j in range(lg // 2))
 
 
-def phase_kernels(dev, tables, launches=None):
+# -- what the paths give K3, K6 and K7 ------------------------------------------------
+
+# the shapes the kernels phase holds K6 and K7 at with or without a record:
+# the u64 mirror verifier's P_t ladder (17 points) and first generator fold
+# (32), and its sum over 17 points
+SCALAR_MUL_LANES = (17 * BATCH, 32 * BATCH)
+TREE_SUM_L = (17,)
+
+
+def new_shape_log() -> dict:
+    return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}}
+
+
+@contextlib.contextmanager
+def recording_shapes(log: dict, where: str):
+    """For the block, note what each launch of K3, K6 and K7 is given, so
+    the kernels phase holds each of them at every shape a path gave it:
+    K6's lane count, K7's point count L, and every table or row subset K3
+    walked (by identity, with the phase `where` it was first met in)."""
+    orig = cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm
+
+    def scalar_mul(px, py, pz, k):
+        log["scalar_mul"].add(torch.broadcast_shapes(px.shape, k.shape)[1:].numel())
+        return orig[0](px, py, pz, k)
+
+    def tree_sum(x, y, z):
+        log["tree_sum"].add(x.shape[1])
+        return orig[1](x, y, z)
+
+    def fixed_msm(tab, scalars):
+        log["fixed_msm"].setdefault(id(tab), (tab, where))
+        return orig[2](tab, scalars)
+
+    cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm = \
+        scalar_mul, tree_sum, fixed_msm
+    try:
+        yield log
+    finally:
+        cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm = orig
+
+
+def shape_plan(log, known_tables=()):
+    """What the kernels phase holds K6, K7 and K3 at: the fixed shapes and
+    every one in `log`. -> (K6 lane counts, K7 point counts, [(tables,
+    where)] of the recorded tables not in `known_tables`)."""
+    log = log or new_shape_log()
+    known = {id(t) for t in known_tables}
+    return (sorted(set(SCALAR_MUL_LANES) | log["scalar_mul"]),
+            sorted(set(TREE_SUM_L) | log["tree_sum"]),
+            [tw for key, tw in log["fixed_msm"].items() if key not in known])
+
+
+def phase_kernels(dev, tables, launches=None, shapes=None):
     """Every kernel against its plain version on the card. `launches`: the
-    main path's counts, reported beside each kernel when given."""
+    main path's counts, reported beside each kernel when given; `shapes`:
+    the log of `recording_shapes` over the paths, whose K3, K6 and K7
+    shapes get rows too."""
     gen = np.random.default_rng(2024)
     launches = launches or {}
     rows = []
@@ -392,21 +556,36 @@ def phase_kernels(dev, tables, launches=None):
     rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
     r_rows = tables["full"].subset(round0_r_positions())
     rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R rows"))
+    k6_lanes, k7_points, k3_tables = shape_plan(
+        shapes, (tables["full"], tables["gv"], r_rows))
+    # every other table or row subset a path walked: the u64 prover's other
+    # subsets, the standalone WNLA's tables over 1 + 2 sz rows and subsets
+    for i, (tab, where) in enumerate(k3_tables):
+        rows.append(check_fixed(gen, dev, BATCH, tab, f"F={tab.n_points} {where} #{i}"))
     # every point count the small MSM is built for, so each instantiation a
     # path can reach (verify: D = 2, 5; mirror: also 4 and 1; prove: 2) is held
     # against the plain version at the batch's lanes
     for D in range(1, cuda_msm.DMAX + 1):
         rows.append(check_msm_small(gen, dev, BATCH, D))
-    # the mirror verifier's ladders: P_t (17 points) and the first generator fold (32)
-    rows.append(check_scalar_mul(gen, dev, 17 * BATCH))
-    rows.append(check_scalar_mul(gen, dev, 32 * BATCH))
-    rows.append(check_tree_sum(gen, dev, 17, BATCH))
+    # K8 and K9 at every point count they are built for (the variant paths
+    # reach D = 1, 2 and 3)
+    for kernel in ("msm_small_glv", "msm_small"):
+        for D in range(1, cuda_msm.DMAX_U4 + 1):
+            rows.append(check_msm_small(gen, dev, BATCH, D, kernel))
+    # the ladder at every lane count a path gave it (the mirror verifiers'
+    # ladders and folds, the WNLA commitment over 1 + 2 sz points per lane),
+    # the sum at every point count
+    rows += check_scalar_mul(gen, dev, k6_lanes)
+    for L in k7_points:
+        rows.append(check_tree_sum(gen, dev, L, BATCH))
     ragged = [check_keccak(gen, dev, 77)]
     ragged += check_pow(gen, dev, 131)
     ragged += check_curve(gen, dev, 201)
     ragged.append(check_fixed(gen, dev, 67, tables["gv"], "F=17"))
     ragged.append(check_msm_small(gen, dev, 70, 3))
-    ragged.append(check_scalar_mul(gen, dev, 203))
+    ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small_glv"))
+    ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small"))
+    ragged += check_scalar_mul(gen, dev, [203])
     ragged.append(check_tree_sum(gen, dev, 7, 93))
     for r in ragged:
         r["name"] += " ragged"
@@ -501,11 +680,24 @@ def path_counts(path: str):
     return launches, missing, {k: n for k, n in plain.items() if n}
 
 
-def fail_on_counts(path: str, missing, plain_used) -> None:
+def count_faults(path: str, launches, missing, plain_used) -> list:
+    """What is wrong with a path's counts: kernels of the path never
+    launched, kernels it must not launch launched, plain versions called."""
+    faults = []
     if missing:
-        raise SystemExit(f"kernels never launched on the {path} path: {missing}")
+        faults.append(f"kernels never launched on the {path} path: {missing}")
+    banned = [k for k in PATH_BANNED.get(path, ()) if launches[k]]
+    if banned:
+        faults.append(f"kernels launched on the {path} path that it must not launch: {banned}")
     if plain_used:
-        raise SystemExit(f"plain versions ran on the {path} path: {plain_used}")
+        faults.append(f"plain versions ran on the {path} path: {plain_used}")
+    return faults
+
+
+def fail_on_counts(path: str, launches, missing, plain_used) -> None:
+    faults = count_faults(path, launches, missing, plain_used)
+    if faults:
+        raise SystemExit("; ".join(faults))
 
 
 def run_verify(dobj, cb, pb, fast: bool):
@@ -558,7 +750,7 @@ def phase_verify(dev):
     )
     if wrong or big_wrong:
         raise SystemExit(f"accept mask differs from the expected one at lanes {wrong} ({big_wrong} at 16384)")
-    fail_on_counts("verify", missing, plain_used)
+    fail_on_counts("verify", launches, missing, plain_used)
     ctx = dict(public=public, device_obj=device_obj, rng=rng, cb=cb, pb=pb, want=want, fast_mask=got)
     return launches, ctx
 
@@ -588,7 +780,8 @@ def phase_mirror(dev, ctx):
     )
     if wrong or differs:
         raise SystemExit(f"mirror mask: wrong at lanes {wrong}, differs from the fast verifier at {differs}")
-    fail_on_counts("mirror", missing, plain_used)
+    fail_on_counts("mirror", launches, missing, plain_used)
+    ctx["mirror_mask"] = got
     return launches
 
 
@@ -647,7 +840,8 @@ def phase_prove(dev, ctx):
         oracle_proofs.append(
             public.prove(ln["x"], ln["s"], HostTranscript(LABEL), ReplayRng(ln["draws"])))
     n = len(pbt.lanes)
-    differing = proof_lanes_equal(pb, cv.reciprocal_proofs_to_bytes(oracle_proofs, device="cpu"), n)
+    oracle_pb = cv.reciprocal_proofs_to_bytes(oracle_proofs, device="cpu")
+    differing = proof_lanes_equal(pb, oracle_pb, n)
     if not torch.equal(cb[:, :n].cpu(), torch.from_numpy(cv.point_bytes(oracle_coms))):
         differing.append("commitment")
 
@@ -673,23 +867,159 @@ def phase_prove(dev, ctx):
         raise SystemExit(f"proof bytes differ from the oracle's in {differing}")
     if rejected:
         raise SystemExit(f"a verifier rejects proofs the port made, lanes {rejected[:20]}")
-    fail_on_counts("prove", missing, plain_used)
+    fail_on_counts("prove", launches, missing, plain_used)
+    ctx.update(pbt=pbt, prove_pb=pb, prove_cb=cb, oracle_pb=oracle_pb)
     return launches
 
 
+# -- phase: variants -------------------------------------------------------------------
+
+
+def phase_variants(dev, ctx):
+    """The three u64 paths on the verify and prove phases' batches under each
+    non-default small-MSM switch: the same masks, the same proof bytes on
+    every lane, and the switch's kernel launched where K4 is not.
+    -> {path: launches}."""
+    device_obj, cb, pb, want = ctx["device_obj"], ctx["cb"], ctx["pb"], ctx["want"]
+    pbt = ctx["pbt"]
+
+    def run_prove():
+        com = device_obj.commit_value(pbt.x_words, pbt.s)
+        proof = device_obj.prove(
+            pbt.x_words, pbt.s, Transcript(LABEL, batch=(BATCH,), device=dev), pbt.blind)
+        return com, proof
+
+    out = {}
+    for tag, env in VARIANTS.items():
+        with switches(env):
+            kernel = dc.small_msm_variant()
+            report, failures = {}, []
+            for fast, path in ((True, f"verify_{tag}"), (False, f"mirror_{tag}")):
+                reset_counts()
+                got = run_verify(device_obj, cb, pb, fast=fast).cpu()
+                torch.cuda.synchronize()
+                out[path], missing, plain_used = path_counts(path)
+                wrong = torch.nonzero(got != want).flatten().tolist()
+                base = ctx["fast_mask"] if fast else ctx["mirror_mask"]
+                differs = torch.nonzero(got != base).flatten().tolist()
+                ms = time_ms(lambda: run_verify(device_obj, cb, pb, fast=fast), reps=3)
+                report[path] = dict(wrong_lanes=wrong, lanes_differing_from_default=differs,
+                                    ms_per_batch_1024=ms, launches=out[path], plain_calls=plain_used)
+                if wrong or differs:
+                    failures.append(f"{path}: mask wrong at {wrong}, differs from the default at {differs}")
+                failures += count_faults(path, out[path], missing, plain_used)
+            path = f"prove_{tag}"
+            reset_counts()
+            com, proof = run_prove()
+            torch.cuda.synchronize()
+            out[path], missing, plain_used = path_counts(path)
+            vpb = cv.reciprocal_dev_to_bytes(proof)
+            vcb = dc.compress(com)
+            n = len(pbt.lanes)
+            vs_default = proof_lanes_equal(vpb, ctx["prove_pb"], BATCH)
+            vs_oracle = proof_lanes_equal(vpb, ctx["oracle_pb"], n)
+            if not torch.equal(vcb, ctx["prove_cb"]):
+                vs_default.append("commitment")
+            ms = time_ms(run_prove, reps=3)
+            report[path] = dict(fields_differing_from_default=vs_default,
+                                fields_differing_from_oracle=vs_oracle, ms_per_batch_1024=ms,
+                                launches=out[path], plain_calls=plain_used)
+            if vs_default or vs_oracle:
+                failures.append(f"{path}: bytes differ from the default prover's in {vs_default}, "
+                                f"from the oracle's in {vs_oracle}")
+            failures += count_faults(path, out[path], missing, plain_used)
+        emit("variants", ok=not failures, switches=env, kernel=kernel, batch=BATCH, paths=report)
+        if failures:
+            raise SystemExit("; ".join(failures))
+    return out
+
+
+# -- phase: wnla ------------------------------------------------------------------------
+
+
+def phase_wnla(dev):
+    """The standalone WNLA at |l| = |n| = 16, 32, 64 over a batch of 1024:
+    commit + prove with the proof bytes of the distinct lanes against the
+    oracle's, then the mirror and the collapsed verifier on the honest
+    proofs and with one lane tampered. -> {path: launches}."""
+    out = {}
+    for sz in WNLA_SIZES:
+        path = f"wnla{sz}"
+        t0 = time.time()
+        fx = wnla_fixture(f"{SEED} wnla {sz}", sz, sz, BATCH, device=dev, tables="auto")
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        d, n = fx.dev, len(fx.lanes)
+
+        def transcript():
+            return Transcript(fx.label, batch=(BATCH,), device=dev)
+
+        def prove():
+            com = d.commit(fx.l, fx.n)
+            return com, d.prove(com, transcript(), fx.l, fx.n)
+
+        reset_counts()
+        com, proof = prove()
+        pb = cv.wnla_dev_to_bytes(proof)
+        ok_m = d.verify(fx.com, transcript(), pb)
+        ok_f = d.verify_fast(fx.com, transcript(), pb)
+        torch.cuda.synchronize()
+        out[path], missing, plain_used = path_counts(path)
+        differing = proof_lanes_equal(
+            pb, cv.wnla_proofs_to_bytes([ln["proof"] for ln in fx.lanes], device="cpu"), n)
+        if not torch.equal(dc.compress(com)[:, :n].cpu(),
+                           torch.from_numpy(cv.point_bytes([ln["com"] for ln in fx.lanes]))):
+            differing.append("commitment")
+        bad = pb.l.clone()
+        bad[0, 0, TAMPERED] = (bad[0, 0, TAMPERED] + 1) % (1 << 16)
+        tampered = pb._replace(l=bad)
+        want = torch.ones(BATCH, dtype=torch.bool)
+        want[TAMPERED] = False
+        masks = dict(
+            mirror=ok_m.cpu(), fast=ok_f.cpu(),
+            mirror_tampered=d.verify(fx.com, transcript(), tampered).cpu(),
+            fast_tampered=d.verify_fast(fx.com, transcript(), tampered).cpu(),
+        )
+        wrong = {k: torch.nonzero(m != (want if "tampered" in k else True)).flatten().tolist()
+                 for k, m in masks.items()}
+        wrong = {k: v for k, v in wrong.items() if v}
+        ms_prove = time_ms(prove, reps=3)
+        ms_verify = time_ms(lambda: d.verify(fx.com, transcript(), pb), reps=3)
+        ms_fast = time_ms(lambda: d.verify_fast(fx.com, transcript(), pb), reps=3)
+        emit(
+            "wnla", ok=not differing and not wrong and not missing and not plain_used,
+            size=sz, rounds=proof.x.x.shape[1], batch=BATCH, distinct_lanes=n,
+            fields_differing_from_oracle=differing, wrong_lanes=wrong,
+            launches=out[path], plain_calls=plain_used, fixture_seconds=setup_s,
+            table_points=d.tables.n_points, table_bytes=d.tables.words.numel() * 4,
+            table_subsets=len(d.tables.subsets),
+            table_subset_bytes=sum(t.words.numel() * 4 for t in d.tables.subsets.values()),
+            ms_per_batch_commit_and_prove=ms_prove, ms_per_batch_verify=ms_verify,
+            ms_per_batch_verify_fast=ms_fast,
+        )
+        if differing:
+            raise SystemExit(f"WNLA {sz}: proof bytes differ from the oracle's in {differing}")
+        if wrong:
+            raise SystemExit(f"WNLA {sz}: masks wrong at {wrong}")
+        fail_on_counts(path, out[path], missing, plain_used)
+    return out
+
+
 HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
-                "fixed_msm_kernel", "msm_small_wnaf_kernel", "scalar_mul_kernel",
-                "tree_sum_kernel")
+                "fixed_msm_kernel", "msm_small_wnaf_kernel", "msm_small_glv_kernel",
+                "msm_small_kernel", "scalar_mul_kernel", "tree_sum_kernel")
 
 
 def phase_profile(dev, path: str):
     """One batch of 1024 of `path` under torch.profiler: the device's busy
-    and idle share, the number of launches, and the device time by kernel."""
+    and idle share, the number of launches, and the device time by kernel.
+    A variant path ("verify_glv", ...) runs under its switch, set by the caller."""
     from torch.profiler import ProfilerActivity, profile
 
+    base = path.partition("_")[0]
     public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
     cb, pb, want, _ = make_batch(public, rng, BATCH, dev)
-    if path == "prove":
+    if base == "prove":
         pbt = make_prove_batch(rng, dev)
 
         def run():
@@ -700,7 +1030,7 @@ def phase_profile(dev, path: str):
         run()
     else:
         def run():
-            return run_verify(device_obj, cb, pb, fast=path == "verify")
+            return run_verify(device_obj, cb, pb, fast=base == "verify")
 
         assert run().cpu().tolist() == want.tolist()
     torch.cuda.synchronize()
@@ -755,25 +1085,31 @@ REPLACES = {
     "pt_double": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_curve.py:85"),
     "scalar_mul": ("bppp_tpu_torch/csrc/ladder.cu", "bppp_tpu/ops/pallas_msm.py:216"),
     "tree_sum": ("bppp_tpu_torch/csrc/ladder.cu", "bppp_tpu/ops/pallas_msm.py:748"),
+    "msm_small_glv": ("bppp_tpu_torch/csrc/msm_small_u4.cu", "bppp_tpu/ops/pallas_msm.py:517"),
+    "msm_small": ("bppp_tpu_torch/csrc/msm_small_u4.cu", "bppp_tpu/ops/pallas_msm.py:359"),
 }
 # the row of the kernels phase that stands for each kernel at the main path's shapes
 MAIN_ROW = {
     "f1600": "f1600", "pow_const": "pow_const[fp_sqrt]", "fixed_msm": "fixed_msm[F=49]",
     "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add", "pt_double": "pt_double",
     "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": "tree_sum[L=17]",
+    "msm_small_glv": "msm_small_glv[D=3]", "msm_small": "msm_small[D=3]",
 }
 # the path whose run gives a kernel's `launches` in the kernels line
-COUNTED_ON = {"scalar_mul": "mirror", "tree_sum": "mirror"}
+COUNTED_ON = {"scalar_mul": "mirror", "tree_sum": "mirror",
+              "msm_small_glv": "verify_glv", "msm_small": "verify_noglv"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the build and the kernel comparison")
+                    help="stop after the build and the kernel comparison (at the u64 shapes: "
+                    "the shapes the paths give K3, K6 and K7 are recorded only by a full run)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch of --path instead of the smoke phases")
-    ap.add_argument("--path", choices=sorted(PATH_KERNELS), default="verify",
-                    help="the path --profile runs (default: verify)")
+    ap.add_argument("--path", choices=[p for p in PATH_KERNELS if not p.startswith("wnla")],
+                    default="verify", help="the path --profile runs (default: verify; "
+                    "verify_glv etc. under BPPP_WNAF=0, verify_noglv etc. under BPPP_GLV=0)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -790,7 +1126,9 @@ def main() -> int:
          flags=" ".join(_build.NVCC_FLAGS))
 
     if args.profile:
-        phase_profile(dev, args.path)
+        tag = args.path.partition("_")[2]
+        with switches(VARIANTS[tag] if tag else {}):
+            phase_profile(dev, args.path)
         print(smi, flush=True)
         return 0
     if args.kernels_only:
@@ -799,12 +1137,19 @@ def main() -> int:
         print(smi, flush=True)
         return 0
 
-    by_path = {}
-    by_path["verify"], ctx = phase_verify(dev)
-    by_path["mirror"] = phase_mirror(dev, ctx)
-    by_path["prove"] = phase_prove(dev, ctx)
+    by_path, shapes = {}, new_shape_log()
+    with recording_shapes(shapes, "verify"):
+        by_path["verify"], ctx = phase_verify(dev)
+    with recording_shapes(shapes, "mirror"):
+        by_path["mirror"] = phase_mirror(dev, ctx)
+    with recording_shapes(shapes, "prove"):
+        by_path["prove"] = phase_prove(dev, ctx)
+    with recording_shapes(shapes, "variants"):
+        by_path.update(phase_variants(dev, ctx))
+    with recording_shapes(shapes, "wnla"):
+        by_path.update(phase_wnla(dev))
     counted = {name: by_path[COUNTED_ON.get(name, "verify")][name] for name in REPLACES}
-    rows = {r["name"]: r for r in phase_kernels(dev, ctx["device_obj"].tables, counted)}
+    rows = {r["name"]: r for r in phase_kernels(dev, ctx["device_obj"].tables, counted, shapes)}
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = rows[MAIN_ROW[name]]

@@ -99,7 +99,8 @@ def test_chip_smoke_compares_lanes_from_both_ends_of_a_launch(B):
 
 
 @pytest.mark.parametrize("name", ["f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
-                                  "pt_double", "scalar_mul", "tree_sum"])
+                                  "pt_double", "scalar_mul", "tree_sum", "msm_small_glv",
+                                  "msm_small"])
 def test_chip_smoke_names_each_kernel_its_source_and_what_it_replaces(name):
     cs = _chip_smoke()
     source, replaces = cs.REPLACES[name]
@@ -123,3 +124,77 @@ def test_chip_smoke_holds_every_small_msm_point_count_against_the_plain_version(
     src = inspect.getsource(cs.phase_kernels)
     assert "for D in range(1, cuda_msm.DMAX + 1)" in src
     assert "check_msm_small(gen, dev, BATCH, D)" in src
+
+
+@pytest.mark.parametrize("kernel", ["msm_small_glv", "msm_small"])
+def test_chip_smoke_holds_every_point_count_of_k8_and_k9(kernel):
+    """K8 and K9 are compiled once per point count D = 1 ... DMAX_U4; the
+    variant paths reach all three. The kernels phase has a row for each,
+    and a ragged one; the kernel's paths are the variant paths of its
+    switch, which name it in place of K4."""
+    import inspect
+
+    cs = _chip_smoke()
+    src = inspect.getsource(cs.phase_kernels)
+    assert "for D in range(1, cuda_msm.DMAX_U4 + 1)" in src
+    assert "check_msm_small(gen, dev, BATCH, D, kernel)" in src
+    assert f'check_msm_small(gen, dev, 70, 3, "{kernel}")' in src
+    assert cs.cuda_msm.DMAX_U4 == 3
+    tag = next(t for t, env in cs.VARIANTS.items() if cs.variant_kernel(env) == kernel)
+    for base in cs.BASE_PATHS:
+        ks = cs.PATH_KERNELS[f"{base}_{tag}"]
+        assert kernel in ks and "msm_small_wnaf" not in ks
+        assert cs.PATH_BANNED[f"{base}_{tag}"] == ("msm_small_wnaf",)
+    assert cs.COUNTED_ON[kernel] == f"verify_{tag}"
+    assert cs.MAIN_ROW[kernel] == f"{kernel}[D=3]"
+
+
+@pytest.mark.parametrize("sz", [16, 32, 64])
+def test_chip_smoke_drives_wnla_at_the_reference_sizes(sz):
+    """The wnla phase runs the standalone argument at the JAX package's
+    sizes; each run must launch the fixed-base MSM, the ladder and the
+    tree sum (commit walks 1 + 2 sz points)."""
+    cs = _chip_smoke()
+    assert sz in cs.WNLA_SIZES
+    assert {"fixed_msm", "scalar_mul", "tree_sum"} <= set(cs.PATH_KERNELS[f"wnla{sz}"])
+
+
+@pytest.mark.parametrize("sz", [16, 32, 64])
+def test_chip_smoke_holds_k3_k6_k7_at_every_shape_the_paths_give_them(monkeypatch, sz):
+    """The full run records what each launch of K3, K6 and K7 is given and
+    the kernels phase adds a row for each: here the WNLA commitment's shapes
+    at this size (K6 over (1 + 2 sz) x 1024 lanes, K7 over 1 + 2 sz points)
+    and its table, recorded through stand-ins for the three wrappers."""
+    import inspect
+    import types
+
+    import torch
+
+    cs = _chip_smoke()
+    calls = []
+    for mod, name in ((cs.cuda_ladder, "scalar_mul"), (cs.cuda_ladder, "tree_sum"),
+                      (cs.cuda_fixed_base, "fixed_msm")):
+        monkeypatch.setattr(mod, name, lambda *a, name=name: calls.append(name))
+    stand_ins = (cs.cuda_ladder.scalar_mul, cs.cuda_ladder.tree_sum, cs.cuda_fixed_base.fixed_msm)
+    L = 1 + 2 * sz
+    tab = types.SimpleNamespace(n_points=L)
+    known = types.SimpleNamespace(n_points=49)
+    log = cs.new_shape_log()
+    with cs.recording_shapes(log, f"wnla{sz}"):
+        pts = torch.zeros((16, L, 1), dtype=torch.int64).expand(16, L, cs.BATCH)
+        cs.cuda_ladder.scalar_mul(pts, pts, pts, pts[:, :1])
+        cs.cuda_ladder.tree_sum(pts, pts, pts)
+        cs.cuda_fixed_base.fixed_msm(tab, None)
+        cs.cuda_fixed_base.fixed_msm(known, None)
+    assert calls == ["scalar_mul", "tree_sum", "fixed_msm", "fixed_msm"]
+    assert (cs.cuda_ladder.scalar_mul, cs.cuda_ladder.tree_sum,
+            cs.cuda_fixed_base.fixed_msm) == stand_ins
+    k6, k7, k3 = cs.shape_plan(log, (known,))
+    assert L * cs.BATCH in k6 and set(cs.SCALAR_MUL_LANES) <= set(k6)
+    assert L in k7 and set(cs.TREE_SUM_L) <= set(k7)
+    assert k3 == [(tab, f"wnla{sz}")]
+    src = inspect.getsource(cs.main)
+    for phase in ("verify", "mirror", "prove", "variants", "wnla"):
+        assert f'recording_shapes(shapes, "{phase}")' in src
+    assert "counted, shapes)" in src
+    assert "shape_plan(" in inspect.getsource(cs.phase_kernels)
