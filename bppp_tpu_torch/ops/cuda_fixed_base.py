@@ -9,17 +9,23 @@ W-bit windows cut the add count to ceil(256 / W) per generator:
     int32 tensor of shape (NW, F, 2^W, 16) — per entry the 8 x-words then
     the 8 y-words, 32-bit little-endian, 64 bytes. Entry 0 is all-zero,
     the identity sentinel.
-  * per call (`fixed_msm`): the kernel of `csrc/fixed_msm.cu` walks
-    generators x windows per lane, extracts each W-bit digit from the
-    scalar itself, loads the entry by index and folds it in with one
-    incomplete mixed add.
+  * per call (`fixed_msm`): the kernel of `csrc/fixed_msm.cu` sums the
+    F * NW terms of a lane: it extracts each W-bit digit from the scalar
+    itself, loads the entry by index and folds it in with one incomplete
+    mixed add.
+
+A sum over a SUBSET of the generators reads the same table through a row
+index: `Tables.take` / `subset` give a view that shares the words and
+carries an int32 vector of table rows, which the kernel and the plain
+version both read. Nothing is copied, so the prover's walks all read the
+one table (26 MB at u64, inside the 50 MB L2 of an H100).
 
 Replaces: `pallas_fixed_base._fixed_msm_kernel` (`fixed_msm_sum_flat`).
 Bound on an H100: operations — F * NW mixed adds of 11 modular multiplies
-per lane; the table is shared by all lanes and at W = 8, F = 49 (26 MB)
-fits the L2 cache. The kernel keeps the accumulator in registers across
-the whole generator loop, so nothing but table reads and the scalars
-touches memory.
+per lane. The terms are independent, so a lane's walk is split into S
+slices, one thread each, joined with complete adds (`slice_count` chooses
+S from B and F so that a launch fills the card; `slice_bounds` says which
+terms a slice takes).
 
 The window width is a parameter of `build_tables`, recorded with the
 table; the default 8 keeps the u64 table inside the L2 cache of an H100.
@@ -50,11 +56,13 @@ DEFAULT_W = 8
 
 
 class Tables(NamedTuple):
-    """Window tables of F fixed generators."""
+    """Window tables of fixed generators: the whole table, or a view of
+    some of its rows (`rows`, int32 table indices on the table's device)."""
 
-    words: torch.Tensor  # (NW, F, 2^W, 16) int32
+    words: torch.Tensor  # (NW, Ftab, 2^W, 16) int32
     w_bits: int
-    subsets: dict  # {tuple of generator indices: Tables}, filled by `subset`
+    subsets: dict  # {tuple of generator indices: row view}, filled by `subset`
+    rows: torch.Tensor | None = None
 
     @property
     def n_windows(self) -> int:
@@ -62,18 +70,23 @@ class Tables(NamedTuple):
 
     @property
     def n_points(self) -> int:
-        return self.words.shape[1]
+        """The generators a call walks: the rows of a view, else all."""
+        return self.words.shape[1] if self.rows is None else self.rows.numel()
 
     def take(self, index) -> "Tables":
-        """The tables of a subset of the generators (axis 1)."""
-        idx = torch.as_tensor(index, dtype=torch.int64, device=self.words.device)
-        return Tables(self.words.index_select(1, idx).contiguous(), self.w_bits, {})
+        """A view of some of the generators (axis 1), in `index` order: the
+        same words and an index of their rows, nothing copied."""
+        idx = torch.as_tensor(index, dtype=torch.int64)
+        if self.rows is not None:
+            idx = self.rows.cpu().to(torch.int64)[idx]
+        if idx.ndim != 1 or not bool(((idx >= 0) & (idx < self.words.shape[1])).all()):
+            raise ValueError(f"row index out of range of {self.words.shape[1]} generators")
+        return Tables(self.words, self.w_bits, {}, idx.to(torch.int32).to(self.words.device))
 
     def subset(self, positions: tuple) -> "Tables":
-        """`take(positions)`, built once per distinct tuple and kept with
-        the tables: the prover's call sites each walk a static subset of
-        the generators, and copying table rows per call would cost more
-        than the walk saves."""
+        """`take(positions)`, made once per distinct tuple and kept with the
+        tables: the prover's call sites each walk a static subset of the
+        generators, and its row index is uploaded once."""
         positions = tuple(positions)
         if positions not in self.subsets:
             self.subsets[positions] = self.take(positions)
@@ -148,12 +161,40 @@ def _digits(scalars, w_bits: int = DEFAULT_W):
     return torch.stack(rows, dim=0)
 
 
+# The slice plan. The walk's block holds 32 lanes x min(S, 4) slices, the
+# join gives a lane JOIN_SLOTS slots (the kernels' WALK_SLICES, JOIN_SLOTS);
+# S is a power of two.
+JOIN_SLOTS = 8
+MAX_SLICES = 32  # 64 was slower at (16, 49, 1024): a longer join, the same walk
+MIN_TERMS = 8  # fewer terms per slice and the join outweighs the walk
+# threads an H100 keeps resident: 132 SMs x 16 warps of 32 (<= 128 registers)
+RESIDENT_THREADS = 132 * 16 * 32
+
+
+def slice_count(B: int, F: int, n_win: int) -> int:
+    """S, the threads ("slices") per lane of a B-lane walk over F
+    generators of n_win windows: the largest power of two up to MAX_SLICES
+    that keeps B * S within two waves of resident threads and at least
+    MIN_TERMS terms per slice. 32 at B = 1024, 8 at B = 16384."""
+    S = 1
+    while (2 * S <= MAX_SLICES and B * 2 * S <= 2 * RESIDENT_THREADS
+           and F * n_win // (2 * S) >= MIN_TERMS):
+        S *= 2
+    return S
+
+
+def slice_bounds(n_terms: int, S: int):
+    """[(lo, hi)] of the S slices: slice s walks the terms t = f * NW + w
+    with lo <= t < hi, as the kernel computes them."""
+    return [(s * n_terms // S, (s + 1) * n_terms // S) for s in range(S)]
+
+
 def _check(tab: Tables, scalars):
     if scalars.ndim != 3 or scalars.shape[0] != 16 or scalars.shape[1] != tab.n_points:
         raise ValueError(
             f"scalars must be (16, {tab.n_points}, B), got {tuple(scalars.shape)}"
         )
-    if tab.words.shape != (n_windows(tab.w_bits), tab.n_points, 1 << tab.w_bits, 16):
+    if tab.words.shape != (n_windows(tab.w_bits), tab.words.shape[1], 1 << tab.w_bits, 16):
         raise ValueError("table shape does not match its window width")
     if scalars.device != tab.words.device:
         raise ValueError("tables and scalars lie on different devices")
@@ -161,13 +202,16 @@ def _check(tab: Tables, scalars):
 
 def fixed_msm_plain(tab: Tables, scalars):
     """The same sum in eager PyTorch: digits by `_digits`, entries by
-    gather, then ONE log-depth tree of complete adds over all
-    (window, generator) terms of a lane."""
+    gather (through the row index of a view), then ONE log-depth tree of
+    complete adds over all (window, generator) terms of a lane."""
     PLAIN_CALLS["fixed_msm"] += 1
     _check(tab, scalars)
     NW, F, B = tab.n_windows, tab.n_points, scalars.shape[2]
     dig = _digits(scalars, tab.w_bits)  # (NW, F, B)
-    tx, ty = table_affine(tab)  # (16, NW, F, NE)
+    tx, ty = table_affine(tab)  # (16, NW, Ftab, NE)
+    if tab.rows is not None:
+        rows = tab.rows.to(torch.int64)
+        tx, ty = tx[:, :, rows], ty[:, :, rows]
     idx = dig[None].expand(16, NW, F, B)
     qx = torch.gather(tx, 3, idx).reshape(16, NW * F, B)
     qy = torch.gather(ty, 3, idx).reshape(16, NW * F, B)
@@ -180,20 +224,26 @@ def fixed_msm_plain(tab: Tables, scalars):
 
 
 def fixed_msm(tab: Tables, scalars):
-    """tab: tables of F generators; scalars: (16, F, B) int64 canonical
-    F_n limbs in TABLE order -> three (16, B) int64: the Jacobian sum
-    sum_i [s_i] G_i per lane."""
+    """tab: tables of F generators (or a row view); scalars: (16, F, B)
+    int64 canonical F_n limbs in TABLE (or view) order -> three (16, B)
+    int64: the Jacobian sum sum_i [s_i] G_i per lane."""
     if not scalars.is_cuda:
         return fixed_msm_plain(tab, scalars)
     _check(tab, scalars)
     if tab.words.dtype != torch.int32 or not tab.words.is_contiguous():
         raise ValueError("table words must be a contiguous int32 tensor")
+    if tab.rows is not None and (tab.rows.dtype != torch.int32 or not tab.rows.is_cuda):
+        raise ValueError("a row index must be an int32 tensor on the card")
     sc = flat_i32(scalars, scalars.shape)
     F, B = scalars.shape[1], scalars.shape[2]
+    S = slice_count(B, F, tab.n_windows)
     outs = [torch.empty((16, B), dtype=torch.int32, device=scalars.device) for _ in range(3)]
-    fn = _build.bind("fixed_msm", "bppp_fixed_msm", [_VP] * 5 + [ctypes.c_int] * 3 + [_VP])
-    err = fn(tab.words.data_ptr(), sc.data_ptr(), *(t.data_ptr() for t in outs),
-             F, B, tab.w_bits, _build.stream())
+    part = torch.empty((S, 48, B), dtype=torch.int32, device=scalars.device) if S > 1 else None
+    fn = _build.bind("fixed_msm", "bppp_fixed_msm", [_VP] * 7 + [ctypes.c_int] * 5 + [_VP])
+    err = fn(tab.words.data_ptr(), None if tab.rows is None else tab.rows.data_ptr(),
+             sc.data_ptr(), *(t.data_ptr() for t in outs),
+             None if part is None else part.data_ptr(),
+             F, tab.words.shape[1], B, tab.w_bits, S, _build.stream())
     LAUNCHES["fixed_msm"] += 1
     _build.check(err, "fixed_msm")
     return tuple(o.to(torch.int64) for o in outs)

@@ -21,9 +21,12 @@ is indexed directly, and the modulus is fixed at compile time.
 K4 `msm_small_wnaf` — replaces `pallas_msm._msm_small_wnaf_kernel`.
 sum_i [s_i] P_i over D <= 5 per-proof points, scalars arriving as GLV
 halves recoded to signed 4-bit digit planes. Bound on an H100: operations
-(132 doubles + 66 D + 7 D adds per lane). The whole 33-window walk runs
-in one launch with the accumulator in registers; the per-lane tables
-[1..8] P_i sit in local memory. Adds inside the kernel are incomplete
+(132 doubles + 66 D + 7 D adds per lane). The 2D halves are independent
+33-window walks, so a lane has several threads (`msm_small_plan`: 2D, one
+half each, up to 4096 lanes; one thread per lane beyond, where the card
+is full), joined with complete adds; the tables [1..8] P_i of a lane sit in
+shared memory, built once and read by all its threads (a lane's only
+thread keeps them in its own array). Adds inside the walks are incomplete
 (a collision degrades to the identity, unreachable for challenge
 scalars), the plain version uses complete adds: the two agree as POINTS
 (affine coordinates, compressed bytes), not in (X, Y, Z).
@@ -253,6 +256,34 @@ def msm_small_glv_plain(px, py, pz, mags, signs):
     return _walk_plain(GLV_WINDOWS, entries, px[0])
 
 
+K4_BLOCK = 128  # threads per block at most (the kernel's MAX_THREADS)
+K4_SMEM = 72 * 1024  # shared bytes per block at most
+# Above this many lanes one thread per lane: the split's extra doubles and
+# shared tables then cost more than its shorter series saves. The sweep of
+# both launches on the H100 (`tools/compare_designs.py`, PERF.md): the split
+# wins at every D up to 4096 lanes, the lane walk at 16384, and at 8192 the
+# lane walk at D >= 3 (by 12-30 %), the split at D <= 2 (by 7-10 %). The
+# paths run 1024 and 16384 lanes.
+K4_LANE_WALK_ABOVE = 4096
+K4_LANE_BLOCK = 64  # lanes per block of the one-thread-per-lane launch
+
+
+def k4_smem_bytes(D: int, lpb: int) -> int:
+    """Shared memory of a block of the split launch: the lanes' tables
+    [1..8] P_i (96 bytes an entry) and the join's partials of 2D slots
+    (`csrc/join.cuh`)."""
+    return 4 * lpb * (D * 8 * 24 + 24 * D)
+
+
+def msm_small_plan(D: int, B: int):
+    """(threads per lane, lanes per block) of a K4 launch: 2D (one GLV half
+    each) up to K4_LANE_WALK_ABOVE lanes, as many lanes per block as
+    K4_BLOCK threads hold; 1 beyond."""
+    if B > K4_LANE_WALK_ABOVE:
+        return 1, K4_LANE_BLOCK
+    return 2 * D, K4_BLOCK // (2 * D)
+
+
 def msm_small_wnaf(px, py, pz, dig):
     """px, py, pz: (D, 16, B) int64 Jacobian coordinates of D <= 5 points
     per lane; dig: (33 * 2D, B) int64 packed signed-digit planes in
@@ -262,14 +293,15 @@ def msm_small_wnaf(px, py, pz, dig):
     if not px.is_cuda:
         return msm_small_wnaf_plain(px, py, pz, dig)
     D, B = _check_msm_args(px, py, pz, dig)
+    nthr, lpb = msm_small_plan(D, B)
     ins = [flat_i32(c, c.shape) for c in (px, py, pz)]
     planes = flat_i32(dig, dig.shape)
     outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
     fn = _build.bind(
-        "msm_small", "bppp_msm_small_wnaf", [_VP] * 7 + [ctypes.c_int, ctypes.c_int, _VP]
+        "msm_small", "bppp_msm_small_wnaf", [_VP] * 7 + [ctypes.c_int] * 4 + [_VP]
     )
     err = fn(*(t.data_ptr() for t in ins), planes.data_ptr(),
-             *(t.data_ptr() for t in outs), D, B, _build.stream())
+             *(t.data_ptr() for t in outs), D, B, nthr, lpb, _build.stream())
     LAUNCHES["msm_small_wnaf"] += 1
     _build.check(err, "msm_small_wnaf")
     return tuple(o.to(torch.int64) for o in outs)

@@ -55,9 +55,10 @@ def msm_fixed_positions(tables, points, positions, scalars):
 
     The kernel's cost is rows walked x windows adds per lane, so walking
     only the P live generators beats zero-padding into the full layout
-    whenever P < F. The row subset of a position tuple is built once and
-    kept with the tables (`Tables.subset`); leading batch axes of the
-    scalars flatten into lanes."""
+    whenever P < F. The kernel reads those rows of the one table through
+    a row index, uploaded once per position tuple and kept with the
+    tables (`Tables.subset`); leading batch axes of the scalars flatten
+    into lanes."""
     from . import cuda_fixed_base as cfb
     from . import curve as dc
 

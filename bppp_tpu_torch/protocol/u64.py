@@ -107,7 +107,7 @@ def build_u64_tables(g: PointJ, g_vec: PointJ, h_vec: PointJ, w_bits: int = DEFA
         *(torch.cat([a[:, None], b, c], dim=1) for a, b, c in zip(g, h_vec, g_vec))
     )  # [g | h(32) | g_vec(16)] -> (16, 49)
     tab = build_tables(pts, w_bits)
-    # the circuit MSM's subset [g | g_vec] slices the generator axis
+    # the circuit MSM's subset [g | g_vec]: a row view of the same table
     gv = tab.take([0] + list(range(1 + H_VEC_FULL_SZ, 1 + H_VEC_FULL_SZ + G_VEC_FULL_SZ)))
     return {"full": tab, "gv": gv}
 

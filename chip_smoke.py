@@ -339,10 +339,15 @@ def check_fixed(gen, dev, B, tables, tag):
     assert bool(dc.pt_is_identity(got)[0]), "zero scalars must give the identity"
     ms = time_ms(lambda: cuda_fixed_base.fixed_msm(tables, sc))
     live = int((cuda_fixed_base._digits(sc, tables.w_bits) != 0).sum())
-    nbytes = tables.words.numel() * 4 + (16 * F + 3 * 16) * 4 * B
+    # the table rows the call walks (a row view reads F of the table's rows)
+    row_bytes = tables.n_windows * (1 << tables.w_bits) * 64
+    nbytes = row_bytes * F + (16 * F + 3 * 16) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * MULS_MIXED * live)
+    if tables.rows is not None:
+        tag += " rows"
     return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
                 bound_ms=b_ms, bound_by=by, shape=[16, F, B], w_bits=tables.w_bits,
+                plan=dict(slices=cuda_fixed_base.slice_count(B, F, tables.n_windows)),
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
 
@@ -350,14 +355,18 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
     """One of the three small-MSM kernels (K4, K8 or K9, by wrapper name)
     at D points per lane against its plain version, on compressed bytes.
     Lane 0 has zero scalars, lane 1 identity points, lane 2 the scalar
-    lambda on every point (GLV halves k1 = 0, k2 = 1)."""
+    lambda on every point (GLV halves k1 = 0, k2 = 1), lane 3 the scalar 5
+    (k2 = 0), lane 4 an identity first point: K4's threads of one lane
+    then hand the join identities."""
     pts = rand_points(gen, (D, B), dev)
     kk = rand_scalars(gen, (D, B), N_INT, dev)
     kk[:, :, 0] = 0  # zero scalars
     kk[:, :, 2] = torch.from_numpy(f.int_to_limbs(glv.LAMBDA)).to(dev)
+    kk[:, :, 3] = torch.from_numpy(f.int_to_limbs(5)).to(dev)
     idl = dc.identity((D, B), device=dev)
-    lane = torch.arange(B, device=dev)
-    pts = dc.pt_select(lane == 1, idl, pts)  # identity points
+    lane = torch.arange(B, device=dev)[None]
+    point = torch.arange(D, device=dev)[:, None]
+    pts = dc.pt_select((lane == 1) | ((lane == 4) & (point == 0)), idl, pts)
     coords = [c.movedim(1, 0).contiguous() for c in pts]  # (D, 16, B)
     if kernel == "msm_small":
         ins = [kk.movedim(1, 0).contiguous()]
@@ -397,7 +406,10 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
             + MULS_ADD * live + phi
         nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
-    return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms,
+    plan = {}
+    if kernel == "msm_small_wnaf":
+        plan = dict(zip(("threads_per_lane", "lanes_per_block"), cuda_msm.msm_small_plan(D, B)))
+    return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
                 plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
@@ -555,13 +567,24 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     rows.append(check_fixed(gen, dev, BATCH, tables["full"], "F=49"))
     rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
     r_rows = tables["full"].subset(round0_r_positions())
-    rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R rows"))
+    rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R"))
     k6_lanes, k7_points, k3_tables = shape_plan(
         shapes, (tables["full"], tables["gv"], r_rows))
     # every other table or row subset a path walked: the u64 prover's other
     # subsets, the standalone WNLA's tables over 1 + 2 sz rows and subsets
     for i, (tab, where) in enumerate(k3_tables):
         rows.append(check_fixed(gen, dev, BATCH, tab, f"F={tab.n_points} {where} #{i}"))
+    # the largest whole table (WNLA-64's 129 rows after a full run) read
+    # through a row index of all its rows in reverse order
+    whole = [t for t, _ in k3_tables if t.rows is None] + [tables["full"]]
+    big = max(whole, key=lambda t: t.n_points)
+    rows.append(check_fixed(gen, dev, BATCH, big.take(list(range(big.n_points))[::-1]),
+                            f"F={big.n_points} reversed"))
+    # a batch that fills the card: the wrappers choose coarser splits there
+    rows.append(check_fixed(gen, dev, BIG_BATCH, tables["full"], f"F=49 B={BIG_BATCH}"))
+    for D in (2, cuda_msm.DMAX):
+        rows.append(check_msm_small(gen, dev, BIG_BATCH, D))
+        rows[-1]["name"] += f" B={BIG_BATCH}"
     # every point count the small MSM is built for, so each instantiation a
     # path can reach (verify: D = 2, 5; mirror: also 4 and 1; prove: 2) is held
     # against the plain version at the batch's lanes
@@ -583,6 +606,8 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     ragged += check_curve(gen, dev, 201)
     ragged.append(check_fixed(gen, dev, 67, tables["gv"], "F=17"))
     ragged.append(check_msm_small(gen, dev, 70, 3))
+    ragged.append(check_msm_small(gen, dev, 77, 2))
+    ragged.append(check_msm_small(gen, dev, 333, cuda_msm.DMAX))
     ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small_glv"))
     ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small"))
     ragged += check_scalar_mul(gen, dev, [203])
@@ -594,7 +619,7 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     bad = [r["name"] for r in rows if r["err"] != 0]
     emit("kernels", ok=not bad, kernels=[
         dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
-             kernel_ms=r["ms"], plain_ms=r["plain_ms"], plain_B=r["plain_B"],
+             kernel_ms=r["ms"], plain_ms=r["plain_ms"], plain_B=r["plain_B"], plan=r.get("plan"),
              launches=launches.get(kernel_of(r["name"])),
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], compared=r["compared"])
         for r in rows])
@@ -828,8 +853,12 @@ def phase_prove(dev, ctx):
         return com, proof
 
     reset_counts()
+    # the first prove makes the row index of each table subset it walks: its
+    # peak is the fixture's memory with the prover's working set on top
+    torch.cuda.reset_peak_memory_stats()
     com, proof = run()
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     launches, missing, plain_used = path_counts("prove")
     pb = cv.reciprocal_dev_to_bytes(proof)
     cb = dc.compress(com)
@@ -860,7 +889,8 @@ def phase_prove(dev, ctx):
         accepted_fast=int(ok_fast.sum()), accepted_mirror=int(ok_mirror.sum()),
         rejected_lanes=rejected, launches=launches, plain_calls=plain_used,
         table_subsets=len(device_obj.tables["full"].subsets),
-        table_subset_bytes=sum(t.words.numel() * 4 for t in device_obj.tables["full"].subsets.values()),
+        row_index_bytes=sum(t.rows.numel() * 4 for t in device_obj.tables["full"].subsets.values()),
+        peak_memory_bytes=peak,
         ms_per_batch_1024=ms, proves_per_s_1024=BATCH / ms * 1e3,
     )
     if differing:
@@ -993,7 +1023,7 @@ def phase_wnla(dev):
             launches=out[path], plain_calls=plain_used, fixture_seconds=setup_s,
             table_points=d.tables.n_points, table_bytes=d.tables.words.numel() * 4,
             table_subsets=len(d.tables.subsets),
-            table_subset_bytes=sum(t.words.numel() * 4 for t in d.tables.subsets.values()),
+            row_index_bytes=sum(t.rows.numel() * 4 for t in d.tables.subsets.values()),
             ms_per_batch_commit_and_prove=ms_prove, ms_per_batch_verify=ms_verify,
             ms_per_batch_verify_fast=ms_fast,
         )
@@ -1006,8 +1036,9 @@ def phase_wnla(dev):
 
 
 HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
-                "fixed_msm_kernel", "msm_small_wnaf_kernel", "msm_small_glv_kernel",
-                "msm_small_kernel", "scalar_mul_kernel", "tree_sum_kernel")
+                "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
+                "msm_small_wnaf_lane_kernel", "msm_small_glv_kernel", "msm_small_kernel",
+                "scalar_mul_kernel", "tree_sum_kernel")
 
 
 def phase_profile(dev, path: str):

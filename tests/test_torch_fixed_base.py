@@ -71,8 +71,11 @@ def test_build_tables_entries(w_bits):
 
 def test_tables_subset_and_bad_width():
     tab = tables(4)
-    sub = tab.take([0, 2])
-    assert sub.n_points == 2 and torch.equal(sub.words[:, 1], tab.words[:, 2])
+    sub = tab.take([0, 2])  # a row view: the same words, nothing copied
+    assert sub.n_points == 2 and sub.words is tab.words and sub.rows.tolist() == [0, 2]
+    assert sub.rows.dtype == torch.int32 and sub.take([1]).rows.tolist() == [2]
+    with pytest.raises(ValueError):
+        tab.take([0, 3])
     with pytest.raises(ValueError):
         fb.build_tables(tc.from_int_points(GENS, device="cpu"), 0)
     with pytest.raises(ValueError):
@@ -183,7 +186,7 @@ def test_table_subsets_are_built_once_and_kept():
     assert tab.subsets == {}
     first = tab.subset((2, 0))
     assert tab.subset([2, 0]) is first and list(tab.subsets) == [(2, 0)]
-    assert first.n_points == 2 and torch.equal(first.words[:, 0], tab.words[:, 2])
+    assert first.n_points == 2 and first.words is tab.words and first.rows.tolist() == [2, 0]
     assert tab.subset((0,)) is not first and len(tab.subsets) == 2
 
 

@@ -198,3 +198,36 @@ def test_chip_smoke_holds_k3_k6_k7_at_every_shape_the_paths_give_them(monkeypatc
         assert f'recording_shapes(shapes, "{phase}")' in src
     assert "counted, shapes)" in src
     assert "shape_plan(" in inspect.getsource(cs.phase_kernels)
+
+
+def test_chip_smoke_gives_every_prover_tuple_a_row_index_row(monkeypatch):
+    """Every position tuple handed to `msm_fixed_positions` reaches K3 as a
+    row view of the one table (no copied rows), the full run's record keeps
+    each view, and the kernels phase holds K3 at every recorded view: so
+    each tuple the paths use has a row-index row. Recorded here through a
+    stand-in for the kernel's wrapper, over a table of zeros."""
+    import inspect
+
+    import torch
+
+    from bppp_tpu_torch.ops import cuda_fixed_base as cfb
+    from bppp_tpu_torch.ops import fixed_base as fb
+
+    cs = _chip_smoke()
+    words = torch.zeros((cfb.n_windows(2), 49, 4, 16), dtype=torch.int32)
+    tab = cfb.Tables(words, 2, {})
+    zeros = lambda t, s: tuple(
+        torch.zeros((16, s.shape[2]), dtype=torch.int64) for _ in range(3))
+    monkeypatch.setattr(cs.cuda_fixed_base, "fixed_msm", zeros)
+    tuples = [cs.round0_r_positions(), (0, 1), (12, 3, 7)]
+    log = cs.new_shape_log()
+    with cs.recording_shapes(log, "prove"):
+        for pos in tuples + tuples:  # a tuple met again is one view, one row
+            fb.msm_fixed_positions(tab, None, pos, torch.zeros((16, len(pos), 2),
+                                                               dtype=torch.int64))
+    _, _, k3 = cs.shape_plan(log)
+    assert [t.rows.tolist() for t, _ in k3] == [list(p) for p in tuples]
+    assert all(t.words is words and w == "prove" for t, w in k3)
+    src = inspect.getsource(cs.phase_kernels)
+    assert "for i, (tab, where) in enumerate(k3_tables):" in src
+    assert 'tag += " rows"' in inspect.getsource(cs.check_fixed)
