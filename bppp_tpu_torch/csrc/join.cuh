@@ -1,11 +1,12 @@
 // Joining the partial sums of the threads that share a lane, in shared memory.
 //
-// K3 and K4 give one lane several threads ("slots"), each summing its own
-// part of the lane's terms. A block holds `lpb` lanes x `n` slots; thread
-// (slot s, lane l) calls join_slots with its partial sum, and afterwards
-// slot 0 holds the lane's total. The join is a fixed tree of complete adds:
-// while m > 1 slots are left, h = ceil(m / 2) and slot s < m - h adds slot
-// s + h to its own; the CPU tests of K3 and K4 mirror this order. Every
+// K3, K4, K8 and K9 give one lane several threads ("slots"), each summing
+// its own part of the lane's terms. A block holds `lpb` lanes x `n` slots;
+// thread (slot s, lane l) calls join_slots with its partial sum, and
+// afterwards slot 0 holds the lane's total. The join is a fixed tree of
+// complete adds: while m > 1 slots are left, h = ceil(m / 2) and slot
+// s < m - h adds slot s + h to its own; the CPU tests of the four kernels
+// mirror this order. Every
 // thread of the block must call it, lanes past the batch's end too: it
 // synchronises the block.
 //

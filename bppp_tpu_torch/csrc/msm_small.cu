@@ -31,7 +31,7 @@
 // the wrapper asks for one thread per lane (nthr = 1) and
 // msm_small_wnaf_lane_kernel runs: one thread walks all 2D halves of
 // its lane with its tables in its own array (local memory, cached), the
-// accumulator in registers, no join. `cuda_msm.msm_small_plan` chooses;
+// accumulator in registers, no join. `cuda_msm.msm_small_wnaf_plan` chooses;
 // PERF.md has the sweep behind it (`tools/compare_designs.py`).
 // Bound on an H100: operations. Per lane 132 doubles (7 multiplies each),
 // 66 D adds (16 each) and 7 D table adds, against (3 D + 3) * 64 + 66 D * 4

@@ -4,50 +4,89 @@
 // K9 replaces bppp_tpu/ops/pallas_msm.py::_msm_small_kernel (msm_small_flat),
 // the small MSM under BPPP_GLV=0. Inputs: D Jacobian points per lane,
 // coordinates (D, 16, B); D scalars per lane, canonical F_n limbs (D, 16, B).
-// One thread owns one lane. Per point it builds the table [0..15] P_i in
-// local memory in the reference's order: entry 0 the identity, 1 the point,
-// 2 a true double (kept as the point on identity lanes), 3..15 incomplete
-// adds [d-1]P + P (2 <= d-1 <= 14 cannot collide on a prime-order curve).
-// Then it walks the 64 windows MSB-first: 4 doubles, and per point one
-// INCOMPLETE add of the entry its digit selects; digit 0 selects the
-// identity, which the add leaves inert. The digits are peeled from the
-// scalars' words in registers as in K6: the loop over the eight words is
-// unrolled, the loop over a word's nibbles is not.
-//
 // K8 replaces bppp_tpu/ops/pallas_msm.py::_msm_small_glv_kernel
 // (msm_small_glv_flat), the small MSM under BPPP_WNAF=0 with GLV on. Inputs:
 // the same points; 2D GLV magnitude halves (2D, 16, B), index j = 2i + half
 // (the halves of point i interleaved, k1 then k2), each below 2^132; and 2D
-// negate masks (2D, B), nonzero where half j is negative. The tables are the
-// same 16-entry tables, one per point. The walk takes 33 windows MSB-first:
-// 4 doubles, then per half j the entry tab_{j/2}[digit], with x times beta
-// for the odd (endomorphism) halves, phi(P) = (beta x, y) = [lambda] P, and y
-// negated where the lane's mask for j is set; then an incomplete add.
+// negate masks (2D, B), nonzero where half j is negative.
 //
-// The digits of one window for all points (K9: D, K8: 2D <= 6) ride packed in
-// one 32-bit word, four bits each, and the negate masks in another, so the
-// per-window body takes no array and indexes no register dynamically.
+// What bounds them: at the paths' 1024 lanes, the series of dependent modular
+// multiplies one thread runs (about 1 us each with one warp per scheduler),
+// not the card's integer rate: one thread per lane left 116 of 132 SMs idle
+// and ran 5,500 (K9) or 4,700 (K8) multiplies in series at D = 3. So a lane
+// gets several threads ("slots"), each walking one independent part of the
+// lane's sum, joined at the end with complete adds in shared memory
+// (join.cuh):
 //
-// D is a template parameter, 1..3: a 16-entry table is 16 * 96 = 1.5 KB of
-// local memory per point, 4.6 KB per thread at D = 3 (K4's 8-entry tables
-// allow D = 5 in 3.8 KB). The reference caps its full-tile calls of both
-// kernels at 3 points too (pallas_msm.py FT_DMAX); the caller chunks larger
-// MSMs and joins the chunks with a complete add.
+//   K8, 2D slots: slot j walks half j of point j / 2 over the 33 windows
+//   (the low nibble of word 4, then words 3..0), 4 doubles and at most one
+//   incomplete add per window, over the plain table of its point. phi and
+//   the sign are homomorphisms, so they apply once to the slot's partial
+//   instead of once per entry: an odd slot multiplies its X by beta
+//   (phi(X:Y:Z) = (beta X : Y : Z) = [lambda] (X:Y:Z)), a slot whose half is
+//   negative negates its Y. About 1,700 multiplies in series at any D.
 //
-// Bounds on an H100: operations. Per lane K9 does 256 doubles (7 modular
-// multiplies each), 64 D adds (16 each) and 14 D table operations (one double
-// and 13 adds per point); K8 132 doubles, 66 D adds, the same 14 D table
-// operations and one beta multiply per live odd-half digit. Zero digits add
-// nothing in the bound's count. Bytes moved per lane: K9 (4 D + 3) * 64,
-// K8 (5 D + 3) * 64 + 8 D.
-#include "field.cuh"
+//   K9, D slots: slot i walks the 64 windows of point i's full scalar, 4
+//   doubles and at most one incomplete add each. About 3,000 multiplies in
+//   series: the 252 doubles of a full scalar are a chain no split removes
+//   (K9 is the no-GLV path by definition), so K9 gains less than K8.
+//
+// A walk of one slot cannot collide: its accumulator is [16 p] P with
+// 0 <= p < 2^132 (K8) or < 2^252 (K9), against an entry [d] P, 1 <= d <= 15,
+// and p = 0 leaves the identity, which the add passes through. The tables
+// are built in the reference's order: entry 2 a true double (kept as the
+// point on identity lanes), 3..15 incomplete adds [d-1]P + P (2 <= d-1 <= 14
+// cannot collide on a prime-order curve); a zero digit adds nothing. K8's
+// tables [1..15] P_i live in shared memory, one per point and lane, built by
+// slot 2i and read by both halves' slots. K9's slot i alone reads point i's
+// table, so it keeps [0..15] P_i in its own array (local memory, cached):
+// against a shared-memory table it measured 2-5 % faster at 1024 lanes
+// (PERF.md), and its block needs shared memory only for the join. A block is
+// `lpb` lanes x nthr slots, thread t owning lane t / nthr, slot t mod nthr;
+// padding threads carry a slot the join skips, so every thread meets every
+// barrier.
+//
+// Where the batch fills the card K8's split loses: its 2D x 128 doubles
+// per lane, where one thread per lane does 128, cost more than its shorter
+// series saves, and 1,440 bytes of shared table per point and lane cap the
+// lanes an SM holds. Above `cuda_msm.K8_SPLIT_THREADS` threads per launch
+// the wrapper asks for one thread per lane (nthr = 1) and
+// msm_small_glv_lane_kernel runs: one thread walks all 2D halves of its lane
+// with one accumulator, its tables [0..15] P_i in its own array, phi and the
+// sign applied per entry. K9's split, with no shared table, beat one thread
+// per lane at every batch swept (up to 16384 lanes), so it has no other
+// launch. `cuda_msm.msm_small_glv_plan` / `msm_small_plan` choose; PERF.md
+// has the sweep behind them (`tools/compare_designs.py`).
+//
+// D is a template parameter, 1..3, as in the reference (pallas_msm.py
+// FT_DMAX): a lane's 16-entry tables take 1,440 bytes of shared memory per
+// point in K8 (K4's 8-entry tables 768), so three points of 21 lanes and
+// their join fill 97 KB of a block, and 1,536 bytes of local memory per K9
+// thread; the caller chunks larger MSMs and joins the chunks with a complete
+// add.
+//
+// Bound on an H100: operations. Per lane K9 does 252 doubles (7 modular
+// multiplies each), one add (16) per nonzero digit of its 64 D, and 14 D
+// table operations (one double and 13 adds per point); K8 128 doubles, one
+// add per nonzero digit of its 66 D, the same table operations and one beta
+// multiply per odd half. Bytes moved per lane: K9 (4 D + 3) * 64, K8
+// (5 D + 3) * 64 + 8 D.
+#include "join.cuh"
 
 namespace {
 
 using namespace bppp;
 
 constexpr int GLV_WINDOWS = 33;
-constexpr int TAB = 16;
+constexpr int TAB = 16;  // tables [0..15] P_i in a thread's own array
+constexpr int ENT = 15;  // K8's shared tables [1..15] P_i
+constexpr int MAX_THREADS = 128;
+
+// words of shared memory of one block of K8's split: D tables per lane and
+// the join of 2D slots
+__host__ __device__ constexpr int k8_smem_words(int D, int lpb) {
+  return D * ENT * 24 * lpb + join_words(2 * D, lpb);
+}
 
 // tab[0..15] = [d] P, the reference's build order
 __device__ __forceinline__ void build_table(pt* tab, const pt& P) {
@@ -60,19 +99,118 @@ __device__ __forceinline__ void build_table(pt* tab, const pt& P) {
   for (int e = 3; e < TAB; e++) pt_add_inc(&tab[e], &tab[e - 1], &P);
 }
 
-// One window of K9: 4 doubles, then per point the entry of its digit
-// (digit of point i in bits 4i..4i+3 of digs).
-template <int D>
-__device__ __noinline__ void window_plain(pt* acc, const pt* tab, uint32_t digs) {
+// [1..15] P into shared memory, word k of entry e at ent[((e - 1) * 24 + k) * lpb]
+__device__ __forceinline__ void build_table_sh(uint32_t* ent, int lpb, const pt& P) {
+  sh_store_pt(ent, lpb, P);
+  pt e;
+  pt_dbl(&e, &P);
+  e = pt_select(fe_is_zero(P.z), P, e);
+  sh_store_pt(ent + 24 * lpb, lpb, e);
 #pragma unroll 1
-  for (int s = 0; s < 4; s++) pt_dbl(acc, acc);
-#pragma unroll
-  for (int i = 0; i < D; i++) pt_add_inc(acc, acc, &tab[i * TAB + ((digs >> (4 * i)) & 15u)]);
+  for (int d = 3; d <= ENT; d++) {
+    pt_add_inc(&e, &e, &P);
+    sh_store_pt(ent + (d - 1) * 24 * lpb, lpb, e);
+  }
 }
 
-// One window of K8: 4 doubles, then per half j the entry of point j / 2 at
-// its digit (bits 4j..4j+3 of digs), beta x for odd j, -y where bit j of neg
-// is set.
+// [k] P by the 4-bit windows of k, MSB first: the low nibble of word NW if
+// LEAD, then words NW - 1 .. 0; 4 doubles per window (none before the
+// first), then entry(d) = [d] P added for a nonzero digit d.
+template <int NW, bool LEAD, typename Entry>
+__device__ __forceinline__ pt walk(const fe& k, Entry entry) {
+  pt acc = pt_identity();
+  auto add = [&](uint32_t d) {
+    if (d == 0) return;
+    pt q = entry(d);
+    pt_add_inc(&acc, &acc, &q);
+  };
+  if (LEAD) add(k.v[NW] & 15u);
+#pragma unroll
+  for (int word = NW - 1; word >= 0; word--) {
+    uint32_t bits = k.v[word];
+#pragma unroll 1
+    for (int nib = 0; nib < 8; nib++) {
+      if (LEAD || word != NW - 1 || nib != 0) {
+#pragma unroll 1
+        for (int s = 0; s < 4; s++) pt_dbl(&acc, &acc);
+      }
+      add(bits >> 28);
+      bits <<= 4;
+    }
+  }
+  return acc;
+}
+
+// The lane and slot of thread t of a block of lpb lanes x nthr slots;
+// padding threads get slot nthr, which the join skips.
+struct slot_of {
+  int l, slot;
+  size_t lane;
+  bool live;
+  __device__ slot_of(int nthr, int lpb, int B) {
+    const int t = threadIdx.x;
+    const bool in_block = t < nthr * lpb;
+    l = in_block ? t / nthr : 0;
+    slot = in_block ? t - l * nthr : nthr;
+    lane = (size_t)blockIdx.x * lpb + l;
+    live = in_block && lane < (size_t)B;
+  }
+};
+
+// K9 split: D slots per lane, slot i walks point i over its own table.
+template <int D>
+__global__ void __launch_bounds__(MAX_THREADS)
+    msm_small_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                     const uint32_t* __restrict__ pz, const uint32_t* __restrict__ k,
+                     uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                     uint32_t* __restrict__ oz, int B, int lpb) {
+  extern __shared__ uint32_t sh[];
+  const slot_of s(D, lpb, B);
+  pt acc = pt_identity();
+  if (s.live) {
+    const size_t off = (size_t)s.slot * 16 * B;
+    pt tab[TAB];
+    build_table(tab, pt_load(px + off, py + off, pz + off, B, s.lane));
+    acc = walk<8, false>(fe_load(k + off, B, s.lane), [&](uint32_t d) { return tab[d]; });
+  }
+  join_slots(sh, &acc, s.slot, D, s.l, lpb);
+  if (s.slot == 0 && s.live) pt_store(ox, oy, oz, B, s.lane, acc);
+}
+
+// K8 split: 2D slots per lane, slot j walks GLV half j of point j / 2.
+template <int D>
+__global__ void __launch_bounds__(MAX_THREADS)
+    msm_small_glv_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                         const uint32_t* __restrict__ pz, const uint32_t* __restrict__ mags,
+                         const uint32_t* __restrict__ signs, uint32_t* __restrict__ ox,
+                         uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int B, int lpb) {
+  extern __shared__ uint32_t sh[];
+  const slot_of s(2 * D, lpb, B);
+  const int i = s.slot >> 1;
+  // entry e of point i of lane l at sh + (i * ENT + e - 1) * 24 * lpb + l
+  uint32_t* ent = sh + i * ENT * 24 * lpb + s.l;
+  if (s.live && (s.slot & 1) == 0) {
+    const size_t off = (size_t)i * 16 * B;
+    build_table_sh(ent, lpb, pt_load(px + off, py + off, pz + off, B, s.lane));
+  }
+  __syncthreads();
+  pt acc = pt_identity();
+  if (s.live) {
+    acc = walk<4, true>(fe_load(mags + (size_t)s.slot * 16 * B, B, s.lane), [&](uint32_t d) {
+      return sh_load_pt(ent + ((int)d - 1) * 24 * lpb, lpb);
+    });
+    if (s.slot & 1) acc.x = mul_p(acc.x, fe_const(BETA_WORDS));
+    if (signs[(size_t)s.slot * B + s.lane] != 0u) acc.y = fe_neg<true>(acc.y);
+  }
+  join_slots(sh + D * ENT * 24 * lpb, &acc, s.slot, 2 * D, s.l, lpb);
+  if (s.slot == 0 && s.live) pt_store(ox, oy, oz, B, s.lane, acc);
+}
+
+// -- K8, one thread per lane ---------------------------------------------------
+
+// One window of K8's lane walk: 4 doubles, then per half j the entry of
+// point j / 2 at its digit (bits 4j..4j+3 of digs), beta x for odd j, -y
+// where bit j of neg is set.
 template <int D>
 __device__ __noinline__ void window_glv(pt* acc, const pt* tab, uint32_t digs, uint32_t neg) {
 #pragma unroll 1
@@ -88,47 +226,13 @@ __device__ __noinline__ void window_glv(pt* acc, const pt* tab, uint32_t digs, u
 }
 
 template <int D>
-__global__ void msm_small_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                                 const uint32_t* __restrict__ pz, const uint32_t* __restrict__ k,
-                                 uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
-                                 uint32_t* __restrict__ oz, int B) {
-  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)B) return;
-  pt tab[D * TAB];
-  fe kk[D];
-#pragma unroll
-  for (int i = 0; i < D; i++) {
-    size_t off = (size_t)i * 16 * B;
-    build_table(&tab[i * TAB], pt_load(px + off, py + off, pz + off, B, lane));
-    kk[i] = fe_load(k + off, B, lane);
-  }
-  pt acc = pt_identity();
-#pragma unroll
-  for (int word = 7; word >= 0; word--) {
-    uint32_t bits[D];
-#pragma unroll
-    for (int i = 0; i < D; i++) bits[i] = kk[i].v[word];
-#pragma unroll 1
-    for (int nib = 0; nib < 8; nib++) {
-      uint32_t digs = 0;
-#pragma unroll
-      for (int i = 0; i < D; i++) {
-        digs |= (bits[i] >> 28) << (4 * i);
-        bits[i] <<= 4;
-      }
-      window_plain<D>(&acc, tab, digs);
-    }
-  }
-  pt_store(ox, oy, oz, B, lane, acc);
-}
-
-template <int D>
-__global__ void msm_small_glv_kernel(const uint32_t* __restrict__ px,
-                                     const uint32_t* __restrict__ py,
-                                     const uint32_t* __restrict__ pz,
-                                     const uint32_t* __restrict__ mags,
-                                     const uint32_t* __restrict__ signs, uint32_t* __restrict__ ox,
-                                     uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int B) {
+__global__ void msm_small_glv_lane_kernel(const uint32_t* __restrict__ px,
+                                          const uint32_t* __restrict__ py,
+                                          const uint32_t* __restrict__ pz,
+                                          const uint32_t* __restrict__ mags,
+                                          const uint32_t* __restrict__ signs,
+                                          uint32_t* __restrict__ ox, uint32_t* __restrict__ oy,
+                                          uint32_t* __restrict__ oz, int B) {
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)B) return;
   pt tab[D * TAB];
@@ -175,50 +279,86 @@ static_assert(GLV_WINDOWS == 1 + 4 * 8, "K8 walks the low nibble of word 4, then
 }  // namespace
 
 #ifdef __CUDACC__
-#define BPPP_LAUNCH_PLAIN(DD)                                                                  \
-  case DD:                                                                                     \
-    msm_small_kernel<DD><<<grid, block, 0, (cudaStream_t)stream>>>(                            \
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)k,     \
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, B);                                       \
-    break;
+namespace {
 
-// px, py, pz, k: (D, 16, B) limb words; outputs (16, B). D in [1, 3].
-// Returns cudaGetLastError().
-extern "C" int bppp_msm_small(const void* px, const void* py, const void* pz, const void* k,
-                              void* ox, void* oy, void* oz, int D, int B, void* stream) {
-  if (B <= 0) return 0;
-  dim3 grid((B + 63) / 64), block(64);
-  switch (D) {
-    BPPP_LAUNCH_PLAIN(1)
-    BPPP_LAUNCH_PLAIN(2)
-    BPPP_LAUNCH_PLAIN(3)
-    default:
-      return (int)cudaErrorInvalidValue;
+// A split launch of lpb lanes per block, nthr threads each, `words` of
+// shared memory per block (above 48 KB by opt-in, at most what the card
+// grants).
+template <typename Kernel, typename... Args>
+int launch_split(Kernel kernel, int words, int B, int nthr, int lpb, cudaStream_t st,
+                 Args... args) {
+  const size_t bytes = (size_t)words * sizeof(uint32_t);
+  if (bytes > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
   }
+  kernel<<<(B + lpb - 1) / lpb, (nthr * lpb + 31) / 32 * 32, bytes, st>>>(args..., B, lpb);
   return (int)cudaGetLastError();
 }
 
-#define BPPP_LAUNCH_GLV(DD)                                                                    \
-  case DD:                                                                                     \
-    msm_small_glv_kernel<DD><<<grid, block, 0, (cudaStream_t)stream>>>(                        \
-        (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (const uint32_t*)mags,  \
-        (const uint32_t*)signs, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, B);               \
-    break;
+// K9: nthr = D threads per lane, lpb lanes per block, D * lpb <= MAX_THREADS.
+template <int D>
+int launch_plain(const void* px, const void* py, const void* pz, const void* k, void* ox,
+                 void* oy, void* oz, int B, int nthr, int lpb, cudaStream_t st) {
+  if (nthr != D || lpb < 1 || D * lpb > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  return launch_split(msm_small_kernel<D>, join_words(D, lpb), B, nthr, lpb, st,
+                      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz,
+                      (const uint32_t*)k, (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz);
+}
 
-// px, py, pz: (D, 16, B) limb words; mags: (2D, 16, B) limb words; signs:
-// (2D, B) words; outputs (16, B). D in [1, 3]. Returns cudaGetLastError().
+// K8: nthr threads per lane, 2D (the split) or 1 (the lane walk); lpb lanes
+// per block, nthr * lpb <= MAX_THREADS.
+template <int D>
+int launch_glv(const void* px, const void* py, const void* pz, const void* mags,
+               const void* signs, void* ox, void* oy, void* oz, int B, int nthr, int lpb,
+               cudaStream_t st) {
+  if ((nthr != 1 && nthr != 2 * D) || lpb < 1 || nthr * lpb > MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t *x = (const uint32_t*)px, *y = (const uint32_t*)py, *z = (const uint32_t*)pz;
+  const uint32_t *m = (const uint32_t*)mags, *sg = (const uint32_t*)signs;
+  uint32_t *o1 = (uint32_t*)ox, *o2 = (uint32_t*)oy, *o3 = (uint32_t*)oz;
+  if (nthr == 1) {
+    msm_small_glv_lane_kernel<D><<<(B + lpb - 1) / lpb, lpb, 0, st>>>(x, y, z, m, sg, o1, o2, o3,
+                                                                      B);
+    return (int)cudaGetLastError();
+  }
+  return launch_split(msm_small_glv_kernel<D>, k8_smem_words(D, lpb), B, nthr, lpb, st, x, y, z,
+                      m, sg, o1, o2, o3);
+}
+
+}  // namespace
+
+// K9. px, py, pz, k: (D, 16, B) limb words; outputs (16, B). D in [1, 3];
+// nthr = D threads per lane (one point each); lpb lanes per block,
+// nthr * lpb <= 128. Returns cudaGetLastError().
+extern "C" int bppp_msm_small(const void* px, const void* py, const void* pz, const void* k,
+                              void* ox, void* oy, void* oz, int D, int B, int nthr, int lpb,
+                              void* stream) {
+  if (B <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (D) {
+    case 1: return launch_plain<1>(px, py, pz, k, ox, oy, oz, B, nthr, lpb, st);
+    case 2: return launch_plain<2>(px, py, pz, k, ox, oy, oz, B, nthr, lpb, st);
+    case 3: return launch_plain<3>(px, py, pz, k, ox, oy, oz, B, nthr, lpb, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K8. px, py, pz: (D, 16, B) limb words; mags: (2D, 16, B) limb words;
+// signs: (2D, B) words; outputs (16, B). D in [1, 3]; nthr threads per lane,
+// 2D (one GLV half each) or 1 (the lane walk); lpb lanes per block,
+// nthr * lpb <= 128. Returns cudaGetLastError().
 extern "C" int bppp_msm_small_glv(const void* px, const void* py, const void* pz, const void* mags,
                                   const void* signs, void* ox, void* oy, void* oz, int D, int B,
-                                  void* stream) {
+                                  int nthr, int lpb, void* stream) {
   if (B <= 0) return 0;
-  dim3 grid((B + 63) / 64), block(64);
+  cudaStream_t st = (cudaStream_t)stream;
   switch (D) {
-    BPPP_LAUNCH_GLV(1)
-    BPPP_LAUNCH_GLV(2)
-    BPPP_LAUNCH_GLV(3)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 1: return launch_glv<1>(px, py, pz, mags, signs, ox, oy, oz, B, nthr, lpb, st);
+    case 2: return launch_glv<2>(px, py, pz, mags, signs, ox, oy, oz, B, nthr, lpb, st);
+    case 3: return launch_glv<3>(px, py, pz, mags, signs, ox, oy, oz, B, nthr, lpb, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 #endif

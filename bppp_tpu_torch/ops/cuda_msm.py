@@ -22,33 +22,47 @@ K4 `msm_small_wnaf` — replaces `pallas_msm._msm_small_wnaf_kernel`.
 sum_i [s_i] P_i over D <= 5 per-proof points, scalars arriving as GLV
 halves recoded to signed 4-bit digit planes. Bound on an H100: operations
 (132 doubles + 66 D + 7 D adds per lane). The 2D halves are independent
-33-window walks, so a lane has several threads (`msm_small_plan`: 2D, one
-half each, up to 4096 lanes; one thread per lane beyond, where the card
-is full), joined with complete adds; the tables [1..8] P_i of a lane sit in
-shared memory, built once and read by all its threads (a lane's only
-thread keeps them in its own array). Adds inside the walks are incomplete
-(a collision degrades to the identity, unreachable for challenge
-scalars), the plain version uses complete adds: the two agree as POINTS
-(affine coordinates, compressed bytes), not in (X, Y, Z).
+33-window walks, so a lane has several threads (`msm_small_wnaf_plan`:
+2D, one half each, up to 4096 lanes; one thread per lane beyond, where the
+card is full), joined with complete adds; the tables [1..8] P_i of a lane
+sit in shared memory, built once and read by all its threads (a lane's
+only thread keeps them in its own array). Adds inside the walks are
+incomplete (a collision degrades to the identity, unreachable for
+challenge scalars), the plain version uses complete adds: the two agree as
+POINTS (affine coordinates, compressed bytes), not in (X, Y, Z).
 
 K9 `msm_small` — replaces `pallas_msm._msm_small_kernel`, the small MSM
 under `BPPP_GLV=0`. sum_i [k_i] P_i over D <= 3 points from the full
-256-bit scalars: tables [0..15] P_i, then 64 windows MSB-first, 4 doubles
-and D incomplete adds each. Bound on an H100: operations (256 doubles +
-64 D adds + 14 D table operations per lane). The digits are peeled from
-the scalars' words in registers, so nothing recodes them beforehand.
+256-bit scalars, 64 unsigned 4-bit windows MSB-first. Bound on an H100:
+operations (252 doubles + 64 D adds + 14 D table operations per lane). At
+the paths' 1024 lanes what bounds it is the series one thread runs, so a
+lane has D threads (`msm_small_plan`), one point each: the thread builds
+its table [0..15] P_i in its own array (local memory, measured a little
+faster than shared memory) and walks its 64 windows (4 doubles, at most
+one add each); the D partials join with complete adds in shared memory.
+The 252 doubles of a full scalar stay in every thread's series: K9 is the
+no-GLV path, so it gains less from the split than K8. The split beat one
+thread per lane at every batch swept on the card (up to 16384 lanes), so
+K9 has no other launch.
 
 K8 `msm_small_glv` — replaces `pallas_msm._msm_small_glv_kernel`, the
-small MSM under `BPPP_WNAF=0` with GLV on. The same tables and 33 windows
-over the 2D unsigned GLV magnitude halves: odd halves take beta * x of
-the selected entry, a per-lane mask negates y. Bound on an H100:
-operations (132 doubles + 66 D adds + 14 D table operations, and one beta
-multiply per live odd-half digit, per lane).
+small MSM under `BPPP_WNAF=0` with GLV on: 33 windows over the 2D unsigned
+GLV magnitude halves, odd halves taking phi(P) = (beta x, y), a per-lane
+mask negating a half. Bound on an H100: operations (128 doubles + 66 D
+adds + 14 D table operations, and one beta multiply per odd half, per
+lane). A lane has 2D threads (`msm_small_glv_plan`), one half each, over
+the tables [1..15] P_i in shared memory that the even half's thread
+builds; since phi and negation are homomorphisms, a thread walks the plain
+table and applies beta and the sign once, to its partial. Where the card
+is full (`K8_SPLIT_THREADS`) one thread walks all 2D halves with one
+accumulator, phi and the sign per entry, its tables in its own array.
 
-K8 and K9 keep 16-entry tables (1.5 KB of local memory per point), so
-they take at most `DMAX_U4` = 3 points per call where K4's 8-entry tables
-take `DMAX` = 5; as for K4, their adds are incomplete and they agree with
-their plain versions as points.
+K8 and K9 keep 16-entry tables (1,440 bytes of shared memory per point and
+lane for K8, 1,536 bytes of local memory per K9 thread), so they take at
+most `DMAX_U4` = 3 points per call, as the reference's kernels do, where
+K4's 8-entry tables take `DMAX` = 5; three points of 21 lanes and their
+join already fill 97 KB of a K8 block. As for K4, their adds are
+incomplete and they agree with their plain versions as points.
 """
 
 from __future__ import annotations
@@ -68,9 +82,9 @@ _VP = _build.VP
 LAUNCHES = {"pow_const": 0, "msm_small_wnaf": 0, "msm_small_glv": 0, "msm_small": 0}
 PLAIN_CALLS = {"pow_const": 0, "msm_small_wnaf": 0, "msm_small_glv": 0, "msm_small": 0}
 
-# points per kernel call, bounded by the per-thread tables in local memory:
+# points per kernel call, bounded by each lane's tables:
 DMAX = 5  # K4, tables [1..8] P_i: D * 768 bytes
-DMAX_U4 = 3  # K8 and K9, tables [0..15] P_i: D * 1536 bytes
+DMAX_U4 = 3  # K8 and K9, 16-entry tables: D * 1440 or 1536 bytes
 
 
 def _pow_digits(e: int) -> list[int]:
@@ -275,7 +289,7 @@ def k4_smem_bytes(D: int, lpb: int) -> int:
     return 4 * lpb * (D * 8 * 24 + 24 * D)
 
 
-def msm_small_plan(D: int, B: int):
+def msm_small_wnaf_plan(D: int, B: int):
     """(threads per lane, lanes per block) of a K4 launch: 2D (one GLV half
     each) up to K4_LANE_WALK_ABOVE lanes, as many lanes per block as
     K4_BLOCK threads hold; 1 beyond."""
@@ -293,7 +307,7 @@ def msm_small_wnaf(px, py, pz, dig):
     if not px.is_cuda:
         return msm_small_wnaf_plain(px, py, pz, dig)
     D, B = _check_msm_args(px, py, pz, dig)
-    nthr, lpb = msm_small_plan(D, B)
+    nthr, lpb = msm_small_wnaf_plan(D, B)
     ins = [flat_i32(c, c.shape) for c in (px, py, pz)]
     planes = flat_i32(dig, dig.shape)
     outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
@@ -309,6 +323,47 @@ def msm_small_wnaf(px, py, pz, dig):
 
 # -- K9, K8 ----------------------------------------------------------------------
 
+U4_BLOCK = 128  # threads per block at most (the kernel's MAX_THREADS)
+U4_SMEM = 227 * 1024  # shared bytes a block may opt into on an H100
+U4_LANE_BLOCK = 64  # lanes per block of the one-thread-per-lane launches
+# K8's split runs while its threads (2D per lane x lanes) stay at most
+# this; beyond, where the card is full, its extra doubles cost more than its
+# shorter series saves and one thread per lane runs. The sweep of both
+# launches on the H100 (`tools/compare_designs.py`, PERF.md) crosses over
+# at one thread count for every D: the split won at 49,152 (D = 3 at 8192
+# lanes), the lane walk at 65,536 (D = 2 at 16384, by 4 %) and 98,304 (D = 3
+# at 16384). K9's split won at every swept lane count and D, so K9 has no
+# lane walk. The paths run 1024 lanes.
+K8_SPLIT_THREADS = 49152
+
+
+def k8_smem_bytes(D: int, lpb: int) -> int:
+    """Shared memory of a block of K8's split launch: the lanes' tables
+    [1..15] P_i (96 bytes an entry) and the join's partials of 2D slots
+    (`csrc/join.cuh`)."""
+    return 4 * lpb * (D * 15 * 24 + 24 * D)
+
+
+def k9_smem_bytes(D: int, lpb: int) -> int:
+    """Shared memory of a block of K9's split launch: the join's partials of
+    D slots (each thread keeps its table in its own array)."""
+    return 4 * lpb * 24 * (D // 2)
+
+
+def msm_small_plan(D: int, B: int):
+    """(threads per lane, lanes per block) of a K9 launch: D (one point
+    each), as many lanes per block as U4_BLOCK threads hold, at any B."""
+    return D, U4_BLOCK // D
+
+
+def msm_small_glv_plan(D: int, B: int):
+    """(threads per lane, lanes per block) of a K8 launch: 2D (one GLV
+    half each) while 2D x B <= K8_SPLIT_THREADS, as many lanes per block
+    as U4_BLOCK threads hold; 1 beyond."""
+    if 2 * D * B > K8_SPLIT_THREADS:
+        return 1, U4_LANE_BLOCK
+    return 2 * D, U4_BLOCK // (2 * D)
+
 
 def msm_small(px, py, pz, k):
     """px, py, pz: (D, 16, B) int64 Jacobian coordinates of D <= 3 points
@@ -317,12 +372,11 @@ def msm_small(px, py, pz, k):
     if not px.is_cuda:
         return msm_small_plain(px, py, pz, k)
     D, B = _check_k9_args(px, py, pz, k)
+    nthr, lpb = msm_small_plan(D, B)
     ins = [flat_i32(c, c.shape) for c in (px, py, pz, k)]
     outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
-    fn = _build.bind(
-        "msm_small_u4", "bppp_msm_small", [_VP] * 7 + [ctypes.c_int, ctypes.c_int, _VP]
-    )
-    err = fn(*(t.data_ptr() for t in ins + outs), D, B, _build.stream())
+    fn = _build.bind("msm_small_u4", "bppp_msm_small", [_VP] * 7 + [ctypes.c_int] * 4 + [_VP])
+    err = fn(*(t.data_ptr() for t in ins + outs), D, B, nthr, lpb, _build.stream())
     LAUNCHES["msm_small"] += 1
     _build.check(err, "msm_small")
     return tuple(o.to(torch.int64) for o in outs)
@@ -337,12 +391,11 @@ def msm_small_glv(px, py, pz, mags, signs):
     if not px.is_cuda:
         return msm_small_glv_plain(px, py, pz, mags, signs)
     D, B = _check_k8_args(px, py, pz, mags, signs)
+    nthr, lpb = msm_small_glv_plan(D, B)
     ins = [flat_i32(c, c.shape) for c in (px, py, pz, mags, signs)]
     outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
-    fn = _build.bind(
-        "msm_small_u4", "bppp_msm_small_glv", [_VP] * 8 + [ctypes.c_int, ctypes.c_int, _VP]
-    )
-    err = fn(*(t.data_ptr() for t in ins + outs), D, B, _build.stream())
+    fn = _build.bind("msm_small_u4", "bppp_msm_small_glv", [_VP] * 8 + [ctypes.c_int] * 4 + [_VP])
+    err = fn(*(t.data_ptr() for t in ins + outs), D, B, nthr, lpb, _build.stream())
     LAUNCHES["msm_small_glv"] += 1
     _build.check(err, "msm_small_glv")
     return tuple(o.to(torch.int64) for o in outs)

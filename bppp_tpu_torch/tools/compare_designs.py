@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""K3 (`fixed_msm`) and K4 (`msm_small_wnaf`) of this checkout against
-those of an earlier checkout of the repo, in turns inside one run.
+"""The kernels of this checkout that the port has redesigned — K3
+(`fixed_msm`), K4 (`msm_small_wnaf`), K8 (`msm_small_glv`) and K9
+(`msm_small`) — against those of an earlier checkout of the repo, in turns
+inside one run.
 
     git archive <earlier commit> | tar -x -C <a git-ignored directory>
     python3 bppp_tpu_torch/tools/compare_designs.py --earlier <that directory>
@@ -17,12 +19,18 @@ any earlier tree with the same entry points will do):
   * times `cuda_fixed_base.fixed_msm` over every table and row subset
     (`Tables.subset` / `take`) that a small u64 prove and the standalone
     WNLA at 16/32/64 walk, at 1024 lanes, and over the u64 table at 16384;
-    and `cuda_msm.msm_small_wnaf` at D = 1..5 on 1024 lanes, D = 2 and 5 on
-    16384 and two ragged batches. Inputs come from one seed, so both trees
-    get the same ones; each result is hashed as compressed points;
-  * in this tree's processes, sweeps the kernels' splits through their C
+    `cuda_msm.msm_small_wnaf` at D = 1..5 on 1024 lanes, D = 2 and 5 on
+    16384 and two ragged batches; `cuda_msm.msm_small_glv` and
+    `cuda_msm.msm_small` at D = 1..3 on 1024 lanes, D = 3 on 16384, and
+    the ragged D = 3 on 70 lanes and D = 2 on 77. Inputs come from one
+    seed, so both trees get the same ones; each result is hashed as
+    compressed points;
+  * in this tree's processes, sweeps the kernels' launches through their C
     entry points: K3's slices per lane S, K4's threads per lane (2D or 1)
-    across batch sizes, each checked against the wrapper's result.
+    across batch sizes, and K8's and K9's split (2D or D threads per lane,
+    at 32, 64 and 128 threads per block) and K8's lane walk (one thread
+    per lane) at D = 1..3 across the same batch sizes, each checked
+    against the wrapper's result.
 
 The script prints one JSON line: per row each tree's ms (the mean of its
 two processes, CUDA events, median of 5 each) and whether all four
@@ -49,6 +57,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 K3_SWEEP = {1024: (8, 16, 32, 64), 16384: (1, 2, 4, 8, 16)}
 K4_SWEEP_LANES = (1024, 2048, 4096, 8192, 16384)
+U4_SWEEP_BLOCKS = (32, 64, 128)  # threads per block of K8's and K9's split
+U4_KERNELS = ("msm_small_glv", "msm_small")
 
 
 def load_chip_smoke(tree: str):
@@ -146,6 +156,37 @@ def msm_small_threads(cs, coords, dig, nthr):
     return tuple(o.to(torch.int64) for o in outs)
 
 
+def u4_inputs(cs, gen, kernel, D, B, dev):
+    """Points (three (D, 16, B)) and K8's GLV halves and masks or K9's
+    scalars for D random points and scalars per lane."""
+    coords = [c.movedim(1, 0).contiguous() for c in cs.rand_points(gen, (D, B), dev)]
+    kk = cs.rand_scalars(gen, (D, B), cs.N_INT, dev)
+    ins = cs.glv.glv_halves(kk) if kernel == "msm_small_glv" else (kk.movedim(1, 0).contiguous(),)
+    return coords, list(ins)
+
+
+def u4_launch(cs, kernel, coords, ins, nthr, lpb):
+    """This tree's K8 or K9 through its C entry point with nthr threads per
+    lane (the split's 2D or D, or 1) and lpb lanes per block."""
+    D, _, B = coords[0].shape
+    flat = [cs.cuda_curve.flat_i32(t, t.shape) for t in (*coords, *ins)]
+    outs = [torch.empty((16, B), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    vp = ctypes.c_void_p
+    symbol = "bppp_" + kernel
+    fn = cs._build.bind("msm_small_u4", symbol, [vp] * (len(flat) + 3) + [ctypes.c_int] * 4 + [vp])
+    cs._build.check(fn(*(t.data_ptr() for t in flat + outs), D, B, nthr, lpb, cs._build.stream()),
+                    kernel)
+    return tuple(o.to(torch.int64) for o in outs)
+
+
+def u4_launches(cs, kernel, D):
+    """(threads per lane, lanes per block) of every launch the sweep tries:
+    the split at each block size, then K8's lane walk (K9 has none)."""
+    split = 2 * D if kernel == "msm_small_glv" else D
+    out = [(split, threads // split) for threads in U4_SWEEP_BLOCKS]
+    return out + ([(1, cs.cuda_msm.U4_LANE_BLOCK)] if kernel == "msm_small_glv" else [])
+
+
 def sweep(cs, dev, gen, full) -> list:
     out = []
     for B, cands in K3_SWEEP.items():
@@ -163,6 +204,16 @@ def sweep(cs, dev, gen, full) -> list:
                 out.append(dict(kernel="msm_small_wnaf", D=D, B=B, threads_per_lane=nthr,
                                 agree=digest(cs, msm_small_threads(cs, coords, dig, nthr)) == want,
                                 ms=cs.time_ms(lambda: msm_small_threads(cs, coords, dig, nthr))))
+    for kernel in U4_KERNELS:
+        for D in range(1, cs.cuda_msm.DMAX_U4 + 1):
+            for B in K4_SWEEP_LANES:
+                coords, ins = u4_inputs(cs, gen, kernel, D, B, dev)
+                want = digest(cs, getattr(cs.cuda_msm, kernel)(*coords, *ins))
+                for nthr, lpb in u4_launches(cs, kernel, D):
+                    out.append(dict(
+                        kernel=kernel, D=D, B=B, threads_per_lane=nthr, lanes_per_block=lpb,
+                        agree=digest(cs, u4_launch(cs, kernel, coords, ins, nthr, lpb)) == want,
+                        ms=cs.time_ms(lambda: u4_launch(cs, kernel, coords, ins, nthr, lpb))))
     return out
 
 
@@ -185,6 +236,14 @@ def worker(tree: str, with_sweep: bool) -> dict:
         rows.append(dict(kernel="msm_small_wnaf", row=f"D={D}", shape=[D, 16, B],
                          digest=digest(cs, cs.cuda_msm.msm_small_wnaf(*coords, dig)),
                          ms=cs.time_ms(lambda: cs.cuda_msm.msm_small_wnaf(*coords, dig))))
+    for kernel in U4_KERNELS:
+        for D, B in [(D, cs.BATCH) for D in range(1, cs.cuda_msm.DMAX_U4 + 1)] + [
+                (cs.cuda_msm.DMAX_U4, cs.BIG_BATCH), (3, 70), (2, 77)]:
+            coords, ins = u4_inputs(cs, gen, kernel, D, B, dev)
+            wrapper = getattr(cs.cuda_msm, kernel)
+            rows.append(dict(kernel=kernel, row=f"D={D}", shape=[D, 16, B],
+                             digest=digest(cs, wrapper(*coords, *ins)),
+                             ms=cs.time_ms(lambda: wrapper(*coords, *ins))))
     out = dict(tree=tree, memory=memory, rows=rows)
     if with_sweep:
         out["sweep"] = sweep(cs, dev, gen, tables[0][0])

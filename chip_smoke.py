@@ -356,13 +356,15 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
     at D points per lane against its plain version, on compressed bytes.
     Lane 0 has zero scalars, lane 1 identity points, lane 2 the scalar
     lambda on every point (GLV halves k1 = 0, k2 = 1), lane 3 the scalar 5
-    (k2 = 0), lane 4 an identity first point: K4's threads of one lane
-    then hand the join identities."""
+    (k2 = 0), lane 4 an identity first point, lane 5 the scalar n - 1: the
+    threads of one lane (K4, K8, K9) then hand the join identities and
+    negated halves."""
     pts = rand_points(gen, (D, B), dev)
     kk = rand_scalars(gen, (D, B), N_INT, dev)
     kk[:, :, 0] = 0  # zero scalars
     kk[:, :, 2] = torch.from_numpy(f.int_to_limbs(glv.LAMBDA)).to(dev)
     kk[:, :, 3] = torch.from_numpy(f.int_to_limbs(5)).to(dev)
+    kk[:, :, 5] = torch.from_numpy(f.int_to_limbs(N_INT - 1)).to(dev)
     idl = dc.identity((D, B), device=dev)
     lane = torch.arange(B, device=dev)[None]
     point = torch.arange(D, device=dev)[:, None]
@@ -383,20 +385,21 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
     err = max_err(dc.compress(got)[:, lanes], dc.compress(dc.PointJ(*want)))
     assert bool(dc.pt_is_identity(got)[:2].all()), "zero scalars / identity points"
     ms = time_ms(lambda: wrapper(*coords, *ins))
-    # work this run's data needs: the doubles of the walk and the table
-    # builds on every lane, one add per nonzero digit, one beta multiply per
-    # nonzero digit of an odd GLV half
+    # work this run's data needs: the doubles of the walk (K8, K9: none
+    # before the first window) and the table builds on every lane, one add
+    # per nonzero digit, one beta multiply per nonzero odd GLV half (K8) or
+    # per nonzero digit of one (K4)
     table = D * (MULS_DBL + 13 * MULS_ADD)
     if kernel == "msm_small":
         digits = torch.stack([(kk[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])
-        muls = (256 * MULS_DBL + table) * B + MULS_ADD * int((digits != 0).sum())
+        muls = (4 * 63 * MULS_DBL + table) * B + MULS_ADD * int((digits != 0).sum())
         nbytes = (4 * D + 3) * 16 * 4 * B
     elif kernel == "msm_small_glv":
         mags = ins[0].movedim(0, 1)  # (16, 2D, B)
         digits = torch.stack([(mags[w // 4] >> (4 * (w % 4))) & 15 for w in range(glv.GLV_WINDOWS)])
         live = int((digits != 0).sum())
-        phi = int((digits[:, 1::2] != 0).sum())
-        muls = (4 * glv.GLV_WINDOWS * MULS_DBL + table) * B + MULS_ADD * live + phi
+        phi = int((mags[:, 1::2] != 0).any(dim=0).sum())
+        muls = (4 * (glv.GLV_WINDOWS - 1) * MULS_DBL + table) * B + MULS_ADD * live + phi
         nbytes = ((5 * D + 3) * 16 + 2 * D) * 4 * B
     else:
         dig = ins[0]
@@ -406,9 +409,8 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
             + MULS_ADD * live + phi
         nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
     b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
-    plan = {}
-    if kernel == "msm_small_wnaf":
-        plan = dict(zip(("threads_per_lane", "lanes_per_block"), cuda_msm.msm_small_plan(D, B)))
+    plan = getattr(cuda_msm, f"{kernel}_plan")(D, B)
+    plan = dict(zip(("threads_per_lane", "lanes_per_block"), plan))
     return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
                 plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
@@ -595,6 +597,9 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     for kernel in ("msm_small_glv", "msm_small"):
         for D in range(1, cuda_msm.DMAX_U4 + 1):
             rows.append(check_msm_small(gen, dev, BATCH, D, kernel))
+        # a batch that fills the card, under whichever launch the plan takes there
+        rows.append(check_msm_small(gen, dev, BIG_BATCH, cuda_msm.DMAX_U4, kernel))
+        rows[-1]["name"] += f" B={BIG_BATCH}"
     # the ladder at every lane count a path gave it (the mirror verifiers'
     # ladders and folds, the WNLA commitment over 1 + 2 sz points per lane),
     # the sum at every point count
@@ -609,7 +614,9 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     ragged.append(check_msm_small(gen, dev, 77, 2))
     ragged.append(check_msm_small(gen, dev, 333, cuda_msm.DMAX))
     ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small_glv"))
+    ragged.append(check_msm_small(gen, dev, 77, 2, "msm_small_glv"))
     ragged.append(check_msm_small(gen, dev, 70, 3, "msm_small"))
+    ragged.append(check_msm_small(gen, dev, 77, 2, "msm_small"))
     ragged += check_scalar_mul(gen, dev, [203])
     ragged.append(check_tree_sum(gen, dev, 7, 93))
     for r in ragged:
@@ -1037,8 +1044,8 @@ def phase_wnla(dev):
 
 HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
                 "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
-                "msm_small_wnaf_lane_kernel", "msm_small_glv_kernel", "msm_small_kernel",
-                "scalar_mul_kernel", "tree_sum_kernel")
+                "msm_small_wnaf_lane_kernel", "msm_small_glv_kernel", "msm_small_glv_lane_kernel",
+                "msm_small_kernel", "scalar_mul_kernel", "tree_sum_kernel")
 
 
 def phase_profile(dev, path: str):

@@ -139,6 +139,10 @@ def test_chip_smoke_holds_every_point_count_of_k8_and_k9(kernel):
     assert "for D in range(1, cuda_msm.DMAX_U4 + 1)" in src
     assert "check_msm_small(gen, dev, BATCH, D, kernel)" in src
     assert f'check_msm_small(gen, dev, 70, 3, "{kernel}")' in src
+    # the tail block of a split launch at an even slot count, and a batch
+    # that fills the card under whichever launch the plan takes there
+    assert f'check_msm_small(gen, dev, 77, 2, "{kernel}")' in src
+    assert "check_msm_small(gen, dev, BIG_BATCH, cuda_msm.DMAX_U4, kernel)" in src
     assert cs.cuda_msm.DMAX_U4 == 3
     tag = next(t for t, env in cs.VARIANTS.items() if cs.variant_kernel(env) == kernel)
     for base in cs.BASE_PATHS:

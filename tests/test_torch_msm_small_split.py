@@ -1,6 +1,6 @@
 """K4's launch decomposition on the CPU: the wrapper's plan
-(`cuda_msm.msm_small_plan`) gives each lane several threads, each walking
-whole GLV halves, and the per-thread partial sums joined in the kernel's
+(`cuda_msm.msm_small_wnaf_plan`) gives each lane several threads, each
+walking whole GLV halves, and the per-thread partial sums joined in the kernel's
 order (`csrc/msm_small.cu`, `csrc/join.cuh`) give the plain version's
 point and the JAX package's oracle sum. Every comparison is exact
 (tolerance 0): compressed bytes, since the split changes (X, Y, Z) and not
@@ -32,7 +32,7 @@ def test_plan_gives_whole_halves_to_each_thread(D, B_):
     PERF.md) at every D up to 4096 lanes, at 16384, and at 8192 for D >= 3.
     A block fits 128 threads, and the split's tables and join fit the
     shared-memory budget."""
-    nthr, lpb = cuda_msm.msm_small_plan(D, B_)
+    nthr, lpb = cuda_msm.msm_small_wnaf_plan(D, B_)
     assert nthr == (2 * D if B_ <= cuda_msm.K4_LANE_WALK_ABOVE else 1)
     assert 1 <= lpb and nthr * lpb <= cuda_msm.K4_BLOCK
     if nthr > 1:
