@@ -13,6 +13,15 @@
 //   F_p: 2^256 = 2^32 + 977 (mod p)          two folds + conditional subtract
 //   F_n: 2^256 = C_N = 2^256 - n (129 bits)   three folds + conditional subtract
 // so results equal the plain PyTorch versions limb for limb.
+//
+// A square has its own product, sqr_wide: the 28 products a[i] * a[j] with
+// i < j, doubled by a shift, plus the 8 diagonal squares — 36 word products
+// where mul_wide's schoolbook takes 64. Its 512-bit result is the same
+// number, so sqr_p(a) equals mul_p(a, a) limb for limb. The point formulas
+// square through it: 5 of a double's 7 multiplies, 4 of an add's 16. In a
+// kernel that runs one lane's series of dependent multiplies (every walk
+// here is latency-bound at the paths' batches) fewer products per square
+// shorten the series.
 #pragma once
 
 #include <stdint.h>
@@ -37,6 +46,28 @@ static __constant__ uint32_t CN_WORDS[5] = {
 static __constant__ uint32_t BETA_WORDS[8] = {
     0x719501EEu, 0xC1396C28u, 0x12F58995u, 0x9CF04975u,
     0xAC3434E9u, 0x6E64479Eu, 0x657C0710u, 0x7AE96A2Bu};
+// The GLV split of a scalar k = k1 + k2 lambda (mod n), libsecp256k1's
+// constants as in ops/glv.py: lambda, the lattice vectors' b1 = -B1ABS and
+// b2, G_i = round(2^384 * b_i / n) for the rounding, and floor(n / 2), above
+// which a half is negative.
+static __constant__ uint32_t LAMBDA_WORDS[8] = {
+    0x1B23BD72u, 0xDF02967Cu, 0x20816678u, 0x122E22EAu,
+    0x8812645Au, 0xA5261C02u, 0xC05C30E0u, 0x5363AD4Cu};
+static __constant__ uint32_t B1ABS_WORDS[8] = {
+    0x0ABFE4C3u, 0x6F547FA9u, 0x010E8828u, 0xE4437ED6u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
+static __constant__ uint32_t B2_WORDS[8] = {
+    0x9284EB15u, 0xE86C90E4u, 0xA7D46BCDu, 0x3086D221u,
+    0x00000000u, 0x00000000u, 0x00000000u, 0x00000000u};
+static __constant__ uint32_t G1_WORDS[8] = {
+    0x45DBB031u, 0xE893209Au, 0x71E8CA7Fu, 0x3DAA8A14u,
+    0x9284EB15u, 0xE86C90E4u, 0xA7D46BCDu, 0x3086D221u};
+static __constant__ uint32_t G2_WORDS[8] = {
+    0x8AC47F71u, 0x1571B4AEu, 0x9DF506C6u, 0x221208ACu,
+    0x0ABFE4C4u, 0x6F547FA9u, 0x010E8828u, 0xE4437ED6u};
+static __constant__ uint32_t HALF_N_WORDS[8] = {
+    0x681B20A0u, 0xDFE92F46u, 0x57A4501Du, 0x5D576E73u,
+    0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu};
 
 struct fe {
   uint32_t v[8];
@@ -194,6 +225,39 @@ __device__ __forceinline__ void mul_wide(uint32_t* w, const fe& a, const fe& b) 
   }
 }
 
+// a * a, 16 words: the off-diagonal products once, doubled, then the
+// diagonal squares. The off-diagonal sum is below 2^511, so the shift loses
+// nothing, and the total a^2 < 2^512 leaves no carry.
+__device__ __forceinline__ void sqr_wide(uint32_t* w, const fe& a) {
+#pragma unroll
+  for (int k = 0; k < 16; k++) w[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 7; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < 8; j++) {
+      uint64_t t = (uint64_t)a.v[i] * a.v[j] + w[i + j] + c;
+      w[i + j] = (uint32_t)t;
+      c = t >> 32;
+    }
+    w[i + 8] = (uint32_t)c;
+  }
+#pragma unroll
+  for (int k = 15; k > 0; k--) w[k] = (w[k] << 1) | (w[k - 1] >> 31);
+  w[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    uint64_t sq = (uint64_t)a.v[i] * a.v[i];
+    uint64_t t = (uint64_t)w[2 * i] + (uint32_t)sq + c;
+    w[2 * i] = (uint32_t)t;
+    c = t >> 32;
+    t = (uint64_t)w[2 * i + 1] + (sq >> 32) + c;
+    w[2 * i + 1] = (uint32_t)t;
+    c = t >> 32;
+  }
+}
+
 // 16 words -> canonical mod p. x = L + H * (2^32 + 977), folded until no
 // carry is left, then one conditional subtract.
 __device__ __forceinline__ fe fold_p(const uint32_t* w) {
@@ -308,6 +372,11 @@ __device__ __forceinline__ fe fe_mul(const fe& a, const fe& b) {
 }
 
 __device__ __forceinline__ fe mul_p(const fe& a, const fe& b) { return fe_mul<true>(a, b); }
+__device__ __forceinline__ fe sqr_p(const fe& a) {
+  uint32_t w[16];
+  sqr_wide(w, a);
+  return fold_p(w);
+}
 __device__ __forceinline__ fe add_p(const fe& a, const fe& b) { return fe_add<true>(a, b); }
 __device__ __forceinline__ fe sub_p(const fe& a, const fe& b) { return fe_sub<true>(a, b); }
 
@@ -332,14 +401,14 @@ __device__ __forceinline__ pt pt_select(bool m, const pt& a, const pt& b) {
 // dbl-2009-l (a = 0). Complete for the identity: Z3 = 2YZ vanishes with Z.
 __device__ __noinline__ void pt_dbl(pt* out, const pt* in) {
   const fe X = in->x, Y = in->y, Z = in->z;
-  fe A = mul_p(X, X);
-  fe Bb = mul_p(Y, Y);
-  fe C = mul_p(Bb, Bb);
+  fe A = sqr_p(X);
+  fe Bb = sqr_p(Y);
+  fe C = sqr_p(Bb);
   fe t = add_p(X, Bb);
-  fe D = sub_p(sub_p(mul_p(t, t), A), C);
+  fe D = sub_p(sub_p(sqr_p(t), A), C);
   D = add_p(D, D);
   fe E = add_p(add_p(A, A), A);
-  fe F = mul_p(E, E);
+  fe F = sqr_p(E);
   fe X3 = sub_p(F, add_p(D, D));
   fe C8 = add_p(C, C);
   C8 = add_p(C8, C8);
@@ -356,18 +425,18 @@ struct add_core {
 };
 
 __device__ __forceinline__ void jac_add_core(add_core* o, const pt& p, const pt& q) {
-  fe Z1Z1 = mul_p(p.z, p.z);
-  fe Z2Z2 = mul_p(q.z, q.z);
+  fe Z1Z1 = sqr_p(p.z);
+  fe Z2Z2 = sqr_p(q.z);
   fe U1 = mul_p(p.x, Z2Z2);
   fe U2 = mul_p(q.x, Z1Z1);
   fe S1 = mul_p(p.y, mul_p(q.z, Z2Z2));
   fe S2 = mul_p(q.y, mul_p(p.z, Z1Z1));
   fe H = sub_p(U2, U1);
   fe r = sub_p(S2, S1);
-  fe HH = mul_p(H, H);
+  fe HH = sqr_p(H);
   fe HHH = mul_p(H, HH);
   fe V = mul_p(U1, HH);
-  fe rr = mul_p(r, r);
+  fe rr = sqr_p(r);
   fe X3 = sub_p(sub_p(rr, HHH), add_p(V, V));
   o->sum.y = sub_p(mul_p(r, sub_p(V, X3)), mul_p(S1, HHH));
   o->sum.z = mul_p(mul_p(p.z, q.z), H);
@@ -419,15 +488,15 @@ __device__ __noinline__ void pt_add_inc(pt* out, const pt* pp, const pt* qq) {
 __device__ __noinline__ void pt_add_mixed_inc(pt* out, const pt* pp, const fe* qxp, const fe* qyp) {
   const pt p = *pp;
   const fe qx = *qxp, qy = *qyp;
-  fe Z1Z1 = mul_p(p.z, p.z);
+  fe Z1Z1 = sqr_p(p.z);
   fe U2 = mul_p(qx, Z1Z1);
   fe S2 = mul_p(qy, mul_p(p.z, Z1Z1));
   fe H = sub_p(U2, p.x);
   fe r = sub_p(S2, p.y);
-  fe HH = mul_p(H, H);
+  fe HH = sqr_p(H);
   fe HHH = mul_p(H, HH);
   fe V = mul_p(p.x, HH);
-  fe rr = mul_p(r, r);
+  fe rr = sqr_p(r);
   pt s;
   s.x = sub_p(sub_p(rr, HHH), add_p(V, V));
   s.y = sub_p(mul_p(r, sub_p(V, s.x)), mul_p(p.y, HHH));

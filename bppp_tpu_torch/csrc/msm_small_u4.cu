@@ -56,7 +56,9 @@
 // sign applied per entry. K9's split, with no shared table, beat one thread
 // per lane at every batch swept (up to 16384 lanes), so it has no other
 // launch. `cuda_msm.msm_small_glv_plan` / `msm_small_plan` choose; PERF.md
-// has the sweep behind them (`tools/compare_designs.py`).
+// has the sweep behind them (`tools/compare_designs.py`). The table builds,
+// the walk and the bodies of K8's two launches (glv_split, glv_lane) live in
+// glv_walk.cuh, which K6 (ladder.cu) shares at D = 1.
 //
 // D is a template parameter, 1..3, as in the reference (pallas_msm.py
 // FT_DMAX): a lane's 16-entry tables take 1,440 bytes of shared memory per
@@ -71,91 +73,11 @@
 // add per nonzero digit of its 66 D, the same table operations and one beta
 // multiply per odd half. Bytes moved per lane: K9 (4 D + 3) * 64, K8
 // (5 D + 3) * 64 + 8 D.
-#include "join.cuh"
+#include "glv_walk.cuh"
 
 namespace {
 
 using namespace bppp;
-
-constexpr int GLV_WINDOWS = 33;
-constexpr int TAB = 16;  // tables [0..15] P_i in a thread's own array
-constexpr int ENT = 15;  // K8's shared tables [1..15] P_i
-constexpr int MAX_THREADS = 128;
-
-// words of shared memory of one block of K8's split: D tables per lane and
-// the join of 2D slots
-__host__ __device__ constexpr int k8_smem_words(int D, int lpb) {
-  return D * ENT * 24 * lpb + join_words(2 * D, lpb);
-}
-
-// tab[0..15] = [d] P, the reference's build order
-__device__ __forceinline__ void build_table(pt* tab, const pt& P) {
-  tab[0] = pt_identity();
-  tab[1] = P;
-  pt d;
-  pt_dbl(&d, &P);
-  tab[2] = pt_select(fe_is_zero(P.z), P, d);
-#pragma unroll 1
-  for (int e = 3; e < TAB; e++) pt_add_inc(&tab[e], &tab[e - 1], &P);
-}
-
-// [1..15] P into shared memory, word k of entry e at ent[((e - 1) * 24 + k) * lpb]
-__device__ __forceinline__ void build_table_sh(uint32_t* ent, int lpb, const pt& P) {
-  sh_store_pt(ent, lpb, P);
-  pt e;
-  pt_dbl(&e, &P);
-  e = pt_select(fe_is_zero(P.z), P, e);
-  sh_store_pt(ent + 24 * lpb, lpb, e);
-#pragma unroll 1
-  for (int d = 3; d <= ENT; d++) {
-    pt_add_inc(&e, &e, &P);
-    sh_store_pt(ent + (d - 1) * 24 * lpb, lpb, e);
-  }
-}
-
-// [k] P by the 4-bit windows of k, MSB first: the low nibble of word NW if
-// LEAD, then words NW - 1 .. 0; 4 doubles per window (none before the
-// first), then entry(d) = [d] P added for a nonzero digit d.
-template <int NW, bool LEAD, typename Entry>
-__device__ __forceinline__ pt walk(const fe& k, Entry entry) {
-  pt acc = pt_identity();
-  auto add = [&](uint32_t d) {
-    if (d == 0) return;
-    pt q = entry(d);
-    pt_add_inc(&acc, &acc, &q);
-  };
-  if (LEAD) add(k.v[NW] & 15u);
-#pragma unroll
-  for (int word = NW - 1; word >= 0; word--) {
-    uint32_t bits = k.v[word];
-#pragma unroll 1
-    for (int nib = 0; nib < 8; nib++) {
-      if (LEAD || word != NW - 1 || nib != 0) {
-#pragma unroll 1
-        for (int s = 0; s < 4; s++) pt_dbl(&acc, &acc);
-      }
-      add(bits >> 28);
-      bits <<= 4;
-    }
-  }
-  return acc;
-}
-
-// The lane and slot of thread t of a block of lpb lanes x nthr slots;
-// padding threads get slot nthr, which the join skips.
-struct slot_of {
-  int l, slot;
-  size_t lane;
-  bool live;
-  __device__ slot_of(int nthr, int lpb, int B) {
-    const int t = threadIdx.x;
-    const bool in_block = t < nthr * lpb;
-    l = in_block ? t / nthr : 0;
-    slot = in_block ? t - l * nthr : nthr;
-    lane = (size_t)blockIdx.x * lpb + l;
-    live = in_block && lane < (size_t)B;
-  }
-};
 
 // K9 split: D slots per lane, slot i walks point i over its own table.
 template <int D>
@@ -186,45 +108,20 @@ __global__ void __launch_bounds__(MAX_THREADS)
                          uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int B, int lpb) {
   extern __shared__ uint32_t sh[];
   const slot_of s(2 * D, lpb, B);
-  const int i = s.slot >> 1;
-  // entry e of point i of lane l at sh + (i * ENT + e - 1) * 24 * lpb + l
-  uint32_t* ent = sh + i * ENT * 24 * lpb + s.l;
-  if (s.live && (s.slot & 1) == 0) {
-    const size_t off = (size_t)i * 16 * B;
-    build_table_sh(ent, lpb, pt_load(px + off, py + off, pz + off, B, s.lane));
-  }
-  __syncthreads();
-  pt acc = pt_identity();
-  if (s.live) {
-    acc = walk<4, true>(fe_load(mags + (size_t)s.slot * 16 * B, B, s.lane), [&](uint32_t d) {
-      return sh_load_pt(ent + ((int)d - 1) * 24 * lpb, lpb);
-    });
-    if (s.slot & 1) acc.x = mul_p(acc.x, fe_const(BETA_WORDS));
-    if (signs[(size_t)s.slot * B + s.lane] != 0u) acc.y = fe_neg<true>(acc.y);
-  }
-  join_slots(sh + D * ENT * 24 * lpb, &acc, s.slot, 2 * D, s.l, lpb);
+  pt acc = glv_split<D>(
+      sh, s, lpb,
+      [&](int i) {
+        const size_t off = (size_t)i * 16 * B;
+        return pt_load(px + off, py + off, pz + off, B, s.lane);
+      },
+      [&](int j, fe* m, bool* neg) {
+        *m = fe_load(mags + (size_t)j * 16 * B, B, s.lane);
+        *neg = signs[(size_t)j * B + s.lane] != 0u;
+      });
   if (s.slot == 0 && s.live) pt_store(ox, oy, oz, B, s.lane, acc);
 }
 
-// -- K8, one thread per lane ---------------------------------------------------
-
-// One window of K8's lane walk: 4 doubles, then per half j the entry of
-// point j / 2 at its digit (bits 4j..4j+3 of digs), beta x for odd j, -y
-// where bit j of neg is set.
-template <int D>
-__device__ __noinline__ void window_glv(pt* acc, const pt* tab, uint32_t digs, uint32_t neg) {
-#pragma unroll 1
-  for (int s = 0; s < 4; s++) pt_dbl(acc, acc);
-  const fe beta = fe_const(BETA_WORDS);
-#pragma unroll
-  for (int j = 0; j < 2 * D; j++) {
-    pt q = tab[(j >> 1) * TAB + ((digs >> (4 * j)) & 15u)];
-    if (j & 1) q.x = mul_p(q.x, beta);
-    if ((neg >> j) & 1u) q.y = fe_neg<true>(q.y);
-    pt_add_inc(acc, acc, &q);
-  }
-}
-
+// K8, one thread per lane: all 2D halves with one accumulator.
 template <int D>
 __global__ void msm_small_glv_lane_kernel(const uint32_t* __restrict__ px,
                                           const uint32_t* __restrict__ py,
@@ -235,67 +132,22 @@ __global__ void msm_small_glv_lane_kernel(const uint32_t* __restrict__ px,
                                           uint32_t* __restrict__ oz, int B) {
   size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (size_t)B) return;
-  pt tab[D * TAB];
-#pragma unroll
-  for (int i = 0; i < D; i++) {
-    size_t off = (size_t)i * 16 * B;
-    build_table(&tab[i * TAB], pt_load(px + off, py + off, pz + off, B, lane));
-  }
-  // the 33 windows cover bits 0..131 of each half: words 0..3 and the low
-  // nibble of word 4
-  fe m[2 * D];
-  uint32_t neg = 0;
-#pragma unroll
-  for (int j = 0; j < 2 * D; j++) {
-    m[j] = fe_load(mags + (size_t)j * 16 * B, B, lane);
-    neg |= (signs[(size_t)j * B + lane] != 0u ? 1u : 0u) << j;
-  }
-  pt acc = pt_identity();
-  uint32_t digs = 0;
-#pragma unroll
-  for (int j = 0; j < 2 * D; j++) digs |= (m[j].v[4] & 15u) << (4 * j);
-  window_glv<D>(&acc, tab, digs, neg);  // window 32
-#pragma unroll
-  for (int word = 3; word >= 0; word--) {
-    uint32_t bits[2 * D];
-#pragma unroll
-    for (int j = 0; j < 2 * D; j++) bits[j] = m[j].v[word];
-#pragma unroll 1
-    for (int nib = 0; nib < 8; nib++) {
-      digs = 0;
-#pragma unroll
-      for (int j = 0; j < 2 * D; j++) {
-        digs |= (bits[j] >> 28) << (4 * j);
-        bits[j] <<= 4;
-      }
-      window_glv<D>(&acc, tab, digs, neg);
-    }
-  }
+  pt acc = glv_lane<D>(
+      [&](int i) {
+        const size_t off = (size_t)i * 16 * B;
+        return pt_load(px + off, py + off, pz + off, B, lane);
+      },
+      [&](int j, fe* m, bool* neg) {
+        *m = fe_load(mags + (size_t)j * 16 * B, B, lane);
+        *neg = signs[(size_t)j * B + lane] != 0u;
+      });
   pt_store(ox, oy, oz, B, lane, acc);
 }
-
-static_assert(GLV_WINDOWS == 1 + 4 * 8, "K8 walks the low nibble of word 4, then words 3..0");
 
 }  // namespace
 
 #ifdef __CUDACC__
 namespace {
-
-// A split launch of lpb lanes per block, nthr threads each, `words` of
-// shared memory per block (above 48 KB by opt-in, at most what the card
-// grants).
-template <typename Kernel, typename... Args>
-int launch_split(Kernel kernel, int words, int B, int nthr, int lpb, cudaStream_t st,
-                 Args... args) {
-  const size_t bytes = (size_t)words * sizeof(uint32_t);
-  if (bytes > 48 * 1024) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<(B + lpb - 1) / lpb, (nthr * lpb + 31) / 32 * 32, bytes, st>>>(args..., B, lpb);
-  return (int)cudaGetLastError();
-}
 
 // K9: nthr = D threads per lane, lpb lanes per block, D * lpb <= MAX_THREADS.
 template <int D>
@@ -323,7 +175,7 @@ int launch_glv(const void* px, const void* py, const void* pz, const void* mags,
                                                                       B);
     return (int)cudaGetLastError();
   }
-  return launch_split(msm_small_glv_kernel<D>, k8_smem_words(D, lpb), B, nthr, lpb, st, x, y, z,
+  return launch_split(msm_small_glv_kernel<D>, glv_split_words(D, lpb), B, nthr, lpb, st, x, y, z,
                       m, sg, o1, o2, o3);
 }
 

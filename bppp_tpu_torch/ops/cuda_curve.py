@@ -1,4 +1,4 @@
-"""Lane-wise Jacobian point add and double: CUDA kernels K5a / K5b.
+"""Lane-wise Jacobian point add and chains of doubles: CUDA kernels K5a / K5b.
 
 Counterpart of `bppp_tpu/ops/pallas_curve.py`. The wrappers take and
 return the interchange layout: coordinates as (16, *batch) int64 limb
@@ -9,14 +9,35 @@ runs the plain PyTorch version below.
 
 Replaces: `pallas_curve._pt_add_kernel` (`pt_add_flat`) and
 `pallas_curve._pt_double_kernel` (`pt_double_flat`).
-Bound on an H100: bytes. The add moves 9 * 64 bytes per lane and does 16
-modular multiplies of 73 32-bit multiply-adds (24 multiplies on a
-doubling collision), the double 6 * 64 bytes and 7 multiplies; at the
-card's peak rates the traffic takes about twice as long as the
-arithmetic. The design keeps all operands of one lane in one thread's
-registers for the whole formula, so nothing but the inputs and outputs
-touches memory; the interchange layout (one 16-bit limb per 32-bit word)
-is what doubles the bytes.
+
+K5a `pt_add`: bound on an H100 by bytes. It moves 9 * 64 bytes per lane
+and does 16 modular multiplies of 73 32-bit multiply-adds (24 multiplies
+on a doubling collision); at the card's peak rates the traffic takes about
+twice as long as the arithmetic. All operands of one lane stay in one
+thread's registers for the whole formula; the interchange layout (one
+16-bit limb per 32-bit word) is what doubles the bytes.
+
+K5b `pt_double_chain`: the n successive doubles [2^t] P, t = 1..n, of each
+lane's point in ONE launch, every one written out as (16, n, *batch). Its
+caller is the fixed-base table build (`cuda_fixed_base.build_tables`),
+which needs 255 doubles of each of 33-129 generators: one launch where a
+double per launch took 255. The chain is serial — [2^(t+1)] P needs
+[2^t] P — so one thread per lane keeps the point in registers for all n
+doubles; on the build's few lanes its time is the latency of 7 n dependent
+modular multiplies, nowhere near the card's rates. `pt_double` — the TPU
+kernel's function, one double per lane — is the same kernel at n = 1. Both
+count their launches under "pt_double".
+
+`affine_rows`: the table build's affine step, the (x, y) of M rows of NE
+Jacobian points, by Montgomery's trick along each row: one thread per row
+multiplies the row's Z up, inverts the product once and walks back down
+for each entry's Z^-1, in registers. It takes the place of the
+reference's inversion of every entry there (`to_affine`, K2
+`pallas_msm.pow_const_flat`). Its plain version runs the same trick as a
+product tree in eager PyTorch: one `fp_inv` of the M roots and about
+three limb multiplies per entry, where an inversion per entry would take
+about 270. Affine values are canonical and unique, so the two agree limb
+for limb whatever the order of their multiplies.
 
 Kernel and plain version apply the same formulas and the same select
 order, so they agree in (X, Y, Z) limb for limb, not only as points.
@@ -31,8 +52,8 @@ import torch
 from . import _build
 from . import field as f
 
-LAUNCHES = {"pt_add": 0, "pt_double": 0}
-PLAIN_CALLS = {"pt_add": 0, "pt_double": 0}
+LAUNCHES = {"pt_add": 0, "pt_double": 0, "affine_rows": 0}
+PLAIN_CALLS = {"pt_add": 0, "pt_double": 0, "affine_rows": 0}
 
 _VP = _build.VP
 
@@ -72,6 +93,43 @@ def _double_formula(X, Y, Z):
 def pt_double_plain(X, Y, Z):
     PLAIN_CALLS["pt_double"] += 1
     return _double_formula(X, Y, Z)
+
+
+def pt_double_chain_plain(X, Y, Z, n: int):
+    """The n successive doubles of (16, *batch) coordinates by the same
+    formula -> three (16, n, *batch)."""
+    PLAIN_CALLS["pt_double"] += 1
+    outs, p = [], (X, Y, Z)
+    for _ in range(n):
+        p = _double_formula(*p)
+        outs.append(p)
+    return tuple(torch.stack([o[c] for o in outs], dim=1) for c in range(3))
+
+
+def affine_rows_plain(X, Y, Z):
+    """Affine (x, y) of Jacobian points with coords (16, M, NE), NE a power
+    of two, zero on identity entries, by Montgomery's trick along the last
+    axis: a product tree of the Z over each row's NE entries (identity
+    entries count as Z = 1), ONE inversion of the M roots, and the tree
+    walked back down for each entry's Z^-1."""
+    PLAIN_CALLS["affine_rows"] += 1
+    is_id = f.fp_is_zero(Z)
+    one = torch.zeros_like(Z)
+    one[0] = 1
+    tree = [torch.where(is_id, one, Z)]
+    while tree[-1].shape[-1] > 1:
+        t = tree[-1]
+        tree.append(f.fp_mul(t[..., 0::2], t[..., 1::2]))
+    inv = f.fp_inv(tree[-1])  # (16, M, 1)
+    for t in reversed(tree[:-1]):
+        # the parent's inverse times a node's sibling is the node's inverse
+        inv = torch.stack([f.fp_mul(inv, t[..., 1::2]), f.fp_mul(inv, t[..., 0::2])],
+                          dim=-1).reshape(t.shape)
+    zi2 = f.fp_sqr(inv)
+    x = f.fp_mul(X, zi2)
+    y = f.fp_mul(Y, f.fp_mul(zi2, inv))
+    zero = torch.zeros_like(x)
+    return torch.where(is_id, zero, x), torch.where(is_id, zero, y)
 
 
 def pt_add_plain(px, py, pz, qx, qy, qz):
@@ -157,18 +215,58 @@ def pt_add(px, py, pz, qx, qy, qz):
     return tuple(o.to(torch.int64).reshape(shape) for o in outs)
 
 
-def pt_double(X, Y, Z):
-    """Double of a Jacobian point, coordinates (16, *batch) int64."""
-    if not X.is_cuda:
-        return pt_double_plain(X, Y, Z)
+def _double_chain_launch(X, Y, Z, n: int):
+    """Launch the chain kernel: three (16, n, B) int64, B the flattened batch."""
     shape = X.shape
     if shape[0] != 16:
         raise ValueError(f"limb axis must have 16 entries, got shape {tuple(shape)}")
     ins = [flat_i32(c, shape) for c in (X, Y, Z)]
     B = ins[0].shape[1]
-    outs = [torch.empty((16, B), dtype=torch.int32, device=X.device) for _ in range(3)]
-    fn = _build.bind("curve", "bppp_pt_double", [_VP] * 6 + [ctypes.c_int, _VP])
-    err = fn(*(t.data_ptr() for t in ins + outs), B, _build.stream())
+    outs = [torch.empty((16, n, B), dtype=torch.int32, device=X.device) for _ in range(3)]
+    fn = _build.bind("curve", "bppp_pt_double_chain", [_VP] * 6 + [ctypes.c_int] * 2 + [_VP])
+    err = fn(*(t.data_ptr() for t in ins + outs), n, B, _build.stream())
     LAUNCHES["pt_double"] += 1
     _build.check(err, "pt_double")
-    return tuple(o.to(torch.int64).reshape(shape) for o in outs)
+    return tuple(o.to(torch.int64) for o in outs)
+
+
+def pt_double_chain(X, Y, Z, n: int):
+    """[2^t] P for t = 1..n of a Jacobian point per lane: coordinates
+    (16, *batch) int64 -> three (16, n, *batch) int64, double t at index
+    t - 1 of axis 1."""
+    if not isinstance(n, int) or n < 1:
+        raise ValueError(f"a chain has at least one double, got n = {n!r}")
+    if not X.is_cuda:
+        return pt_double_chain_plain(X, Y, Z, n)
+    out_shape = (16, n) + tuple(X.shape[1:])
+    return tuple(c.reshape(out_shape) for c in _double_chain_launch(X, Y, Z, n))
+
+
+def pt_double(X, Y, Z):
+    """Double of a Jacobian point, coordinates (16, *batch) int64: the
+    chain kernel at n = 1."""
+    if not X.is_cuda:
+        return pt_double_plain(X, Y, Z)
+    return tuple(c.reshape(X.shape) for c in _double_chain_launch(X, Y, Z, 1))
+
+
+def affine_rows(X, Y, Z):
+    """Affine (x, y) of M rows of NE Jacobian points: coordinates
+    (16, M, NE) int64, NE a power of two -> two (16, M, NE) int64, zero on
+    identity entries. One inversion per row."""
+    if X.ndim != 3 or X.shape[0] != 16 or not X.shape == Y.shape == Z.shape:
+        raise ValueError(f"coordinates must be (16, M, NE), got {tuple(X.shape)}")
+    NE = X.shape[2]
+    if NE & (NE - 1):
+        raise ValueError(f"the entry axis must be a power of two, got {NE}")
+    if not X.is_cuda:
+        return affine_rows_plain(X, Y, Z)
+    M = X.shape[1]
+    # (16, NE, M): a warp's threads own adjacent rows
+    ins = [flat_i32(c, X.shape).reshape(X.shape).transpose(1, 2).contiguous() for c in (X, Y, Z)]
+    outs = [torch.empty((16, NE, M), dtype=torch.int32, device=X.device) for _ in range(2)]
+    fn = _build.bind("curve", "bppp_affine_rows", [_VP] * 5 + [ctypes.c_int] * 2 + [_VP])
+    err = fn(*(t.data_ptr() for t in ins + outs), NE, M, _build.stream())
+    LAUNCHES["affine_rows"] += 1
+    _build.check(err, "affine_rows")
+    return tuple(o.to(torch.int64).transpose(1, 2) for o in outs)

@@ -4,7 +4,9 @@ Counterpart of `bppp_tpu/ops/pallas_fixed_base.py`. For FIXED generators
 the doubles and per-call table builds of a generic MSM disappear, and
 W-bit windows cut the add count to ceil(256 / W) per generator:
 
-  * setup, once per generator set (`build_tables`): affine tables
+  * setup, once per generator set (`build_tables`, one launch of the
+    doubling chain K5b and one of `affine_rows`, which inverts each
+    (window, generator) row of entries once): affine tables
     T[w][i][d] = [d * 2^(w*W)] G_i for every window w and digit d, as one
     int32 tensor of shape (NW, F, 2^W, 16) — per entry the 8 x-words then
     the 8 y-words, 32-bit little-endian, 64 bytes. Entry 0 is all-zero,
@@ -99,36 +101,33 @@ def n_windows(w_bits: int) -> int:
 
 def build_tables(points, w_bits: int = DEFAULT_W) -> Tables:
     """points: PointJ coords (16, F) — unbatched fixed generators, none
-    the identity. Built by doubling: D[t] = [2^t] G_i for every bit t by
-    successive doubles, then for each bit k of a window the entries
-    [2^k, 2^(k+1)) = entries [0, 2^k) + D[w*W + k] as ONE batched complete
-    add over all windows and generators, and one batched inversion for
-    the affine form. Affine values are unique, so the entries do not
-    depend on the order of construction."""
-    from .curve import PointJ, identity, pt_add, pt_double, to_affine
+    the identity. Built by doubling: D[t] = [2^t] G_i for every bit t, all
+    NW * W - 1 doubles of every generator in ONE launch of the chain kernel
+    (`cuda_curve.pt_double_chain`), then for each bit k of a window the
+    entries [2^k, 2^(k+1)) = entries [0, 2^k) + D[w*W + k] as ONE batched
+    complete add over all windows and generators, and the affine form by
+    one inversion per (window, generator) row (`cuda_curve.affine_rows`,
+    one launch). Affine values are unique, so the entries do not depend on
+    the order of construction."""
+    from .curve import PointJ, identity, pt_add
 
     if not 1 <= w_bits <= 16:
         raise ValueError(f"window width must be 1..16 bits, got {w_bits}")
     F = points.x.shape[1]
     NW = n_windows(w_bits)
     dev = points.x.device
-    dbl = [points]
-    for _ in range(NW * w_bits - 1):
-        dbl.append(pt_double(dbl[-1]))
+    chain = cuda_curve.pt_double_chain(*points, NW * w_bits - 1)  # (16, NW*W - 1, F)
+    dbl = [torch.cat([c[:, None], d], dim=1) for c, d in zip(points, chain)]  # D[t], (16, NW*W, F)
     # step[k]: coords (16, NW, F, 1) = [2^(w*W + k)] G_i for every window w
-    step = [
-        PointJ(*(torch.stack([dbl[w * w_bits + k][c] for w in range(NW)], dim=1)[..., None]
-                 for c in range(3)))
-        for k in range(w_bits)
-    ]
+    step = [PointJ(*(d[:, k::w_bits, :, None] for d in dbl)) for k in range(w_bits)]
     ents = identity((NW, F, 1), device=dev)
     for k in range(w_bits):
         upper = pt_add(ents, step[k])
         ents = PointJ(*(torch.cat([a, b], dim=3) for a, b in zip(ents, upper)))
     NE = 1 << w_bits
-    ax, ay, _ = to_affine(PointJ(*(c.reshape(16, -1) for c in ents)))
+    ax, ay = cuda_curve.affine_rows(*(c.reshape(16, NW * F, NE) for c in ents))
 
-    def words(a):  # (16, NW*F*NE) limbs -> (NW, F, NE, 8) 32-bit words
+    def words(a):  # (16, NW * F, NE) limbs -> (NW, F, NE, 8) 32-bit words
         w = a[0::2] | (a[1::2] << 16)
         w = torch.where(w >= (1 << 31), w - (1 << 32), w)  # int32 bit pattern
         return w.to(torch.int32).reshape(8, NW, F, NE).permute(1, 2, 3, 0)

@@ -8,14 +8,24 @@ on the current stream and widens the result, without synchronising; on a
 CPU tensor — and only there — it runs the plain PyTorch version below.
 
 K6 `scalar_mul` — replaces `pallas_msm._ladder_kernel` (`scalar_mul_flat`).
-[k]P per lane: the table [0..15]P by 14 complete adds, then 64 four-bit
-windows from the top, 4 doubles and one complete table add each. Bound on
-an H100: operations (78 adds of 16 modular multiplies + 256 doubles of 7
-per lane, 448 bytes moved). One launch holds the whole ladder: the
-accumulator and the scalar stay in registers, the 1.5 KB table sits in
-the thread's local memory and is indexed by the digit. The adds are
-complete, since the mirror verifier feeds this kernel points and scalars
-it did not choose.
+[k]P per lane. Bound on an H100: operations — per live lane 1 double and
+13 adds for the table [1..15]P, 4 doubles per window below the top nonzero
+one of the larger GLV half, one add per nonzero digit of either half,
+beta's multiply and the join, against 448 bytes moved. At the paths' 4,096
+to 132,096 lanes what holds it back is the series of dependent modular
+multiplies of a lane, so the kernel halves the doubles with the GLV
+endomorphism, computed inside the kernel (no eager decomposition: the
+wrapper launches once): k = k1 + k2 lambda as `glv.decompose` does it,
+each half walked over 33 four-bit windows with incomplete adds, phi and
+the sign applied once to the k2 half's partial, and one complete add
+joining the halves (`csrc/ladder.cu` has the argument why no walk add can
+collide, whoever chose P and k). `scalar_mul_plan(B)` gives a lane two
+threads (one half each, the table in shared memory) or one (both halves
+on one accumulator, the table in its own array), from the sweep of both
+launches on the card (`PERF.md`, `tools/compare_designs.py`). The plain
+version is the 64-window ladder with complete adds, limb-equal to the JAX
+package's graph ladder; kernel and plain version agree as POINTS
+(compressed bytes), not in (X, Y, Z).
 
 K7 `tree_sum` — replaces `pallas_msm._tree_kernel` (`tree_sum_flat`, and
 the layout shuffle of `tree_sum`). (16, L, B) -> (16, B): L - 1 INCOMPLETE
@@ -26,9 +36,9 @@ the short sums of the protocol ((3 L + 3) * 64 bytes per lane). The kernel
 reads the (16, L, B) layout as it stands — adjacent threads read adjacent
 lanes — so no copy rearranges the points first, and L is not padded.
 
-Kernel and plain version apply the same formulas in the same order and
-with the same select order, so for both kernels they agree in (X, Y, Z)
-limb for limb, not only as points.
+For K7 kernel and plain version apply the same formulas in the same
+order and with the same select order, so they agree in (X, Y, Z) limb for
+limb, not only as points.
 """
 
 from __future__ import annotations
@@ -47,14 +57,38 @@ _VP = _build.VP
 LAUNCHES = {"scalar_mul": 0, "tree_sum": 0}
 PLAIN_CALLS = {"scalar_mul": 0, "tree_sum": 0}
 
+K6_BLOCK = 128  # threads per block at most (the kernel's MAX_THREADS)
+K6_LANE_BLOCK = 64  # lanes per block of the one-thread-per-lane launch
+# The split (two threads per lane) runs while its threads stay at most
+# this many; beyond, the lane walk's third less work per lane beats the
+# split's shorter series, whose shared tables (1,536 bytes a lane) also
+# cap the blocks an SM holds. The sweep of both launches on the H100
+# (`tools/compare_designs.py`, PERF.md): the split won up to 8192 lanes
+# (1.35 ms against 1.65), and at 16384 (1.68 against 1.76, timed in
+# turns); the lane walk from 17408 up (2.01 against 2.29 at 17408, 10.88
+# against 11.75 at 132096). At 12288, which no path gives, the lane walk
+# was 2 % ahead in turns. The paths run 4096-132096 lanes.
+K6_SPLIT_THREADS = 32768
+
+
+def scalar_mul_plan(B: int):
+    """(threads per lane, lanes per block) of a K6 launch over B lanes: 2
+    (one GLV half each) while 2 B <= K6_SPLIT_THREADS, as many lanes per
+    block as K6_BLOCK threads hold; 1 beyond."""
+    if 2 * B > K6_SPLIT_THREADS:
+        return 1, K6_LANE_BLOCK
+    return 2, K6_BLOCK // 2
+
 
 # -- plain PyTorch versions ---------------------------------------------------
 
 
 def scalar_mul_plain(px, py, pz, k):
-    """The same ladder in eager PyTorch: complete adds for the table and
-    the walk, doubles before every window (the first four double the
-    identity, as in the kernel)."""
+    """[k]P by the plain 4-bit ladder in eager PyTorch, without GLV:
+    complete adds for the table [0..15]P and the walk over all 64 windows
+    of k, doubles before every window (the first four double the
+    identity). The JAX package's graph ladder runs the same steps, so the
+    two agree limb for limb; the kernel agrees with it as a point."""
     PLAIN_CALLS["scalar_mul"] += 1
     shape = torch.broadcast_shapes(px.shape, k.shape)
     P = tuple(c.expand(shape) for c in (px, py, pz))
@@ -129,9 +163,10 @@ def scalar_mul(px, py, pz, k):
         return scalar_mul_plain(px, py, pz, k)
     ins = [flat_i32(c, shape) for c in (px, py, pz, k)]
     B = ins[0].shape[1]
+    nthr, lpb = scalar_mul_plan(B)
     outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
-    fn = _build.bind("ladder", "bppp_scalar_mul", [_VP] * 7 + [ctypes.c_int, _VP])
-    err = fn(*(t.data_ptr() for t in ins + outs), B, _build.stream())
+    fn = _build.bind("ladder", "bppp_scalar_mul", [_VP] * 7 + [ctypes.c_int] * 3 + [_VP])
+    err = fn(*(t.data_ptr() for t in ins + outs), B, nthr, lpb, _build.stream())
     LAUNCHES["scalar_mul"] += 1
     _build.check(err, "scalar_mul")
     return tuple(o.to(torch.int64).reshape(shape) for o in outs)

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The kernels of this checkout that the port has redesigned — K3
-(`fixed_msm`), K4 (`msm_small_wnaf`), K8 (`msm_small_glv`) and K9
-(`msm_small`) — against those of an earlier checkout of the repo, in turns
-inside one run.
+(`fixed_msm`), K4 (`msm_small_wnaf`), K5b (`pt_double`, the table build's
+doubling chain), K6 (`scalar_mul`), K8 (`msm_small_glv`) and K9
+(`msm_small`), and the table build's affine step (`affine_rows`) — against
+those of an earlier checkout of the repo, in turns inside one run.
 
     git archive <earlier commit> | tar -x -C <a git-ignored directory>
     python3 bppp_tpu_torch/tools/compare_designs.py --earlier <that directory>
@@ -22,15 +23,26 @@ any earlier tree with the same entry points will do):
     `cuda_msm.msm_small_wnaf` at D = 1..5 on 1024 lanes, D = 2 and 5 on
     16384 and two ragged batches; `cuda_msm.msm_small_glv` and
     `cuda_msm.msm_small` at D = 1..3 on 1024 lanes, D = 3 on 16384, and
-    the ragged D = 3 on 70 lanes and D = 2 on 77. Inputs come from one
-    seed, so both trees get the same ones; each result is hashed as
-    compressed points;
+    the ragged D = 3 on 70 lanes and D = 2 on 77; the 255 doubles of the
+    table build on 49 and 129 generators (`cuda_curve.pt_double_chain`, one
+    launch; a tree without it runs `pt_double` 255 times for the same
+    result); `cuda_ladder.scalar_mul` at every lane count of K6's sweep and
+    on a ragged 203; the table build's affine step on the u64 and WNLA-64
+    tables' rows (`cuda_curve.affine_rows`, one launch; a tree without it
+    runs the reference's `to_affine`, a K2 inversion of every entry); and
+    the seconds of a whole `build_tables` over 49 and 129 generators (the
+    u64 and WNLA-64 tables). Inputs come from one seed,
+    so both trees get the same ones; each result is hashed as compressed
+    points (a table by its words);
   * in this tree's processes, sweeps the kernels' launches through their C
     entry points: K3's slices per lane S, K4's threads per lane (2D or 1)
     across batch sizes, and K8's and K9's split (2D or D threads per lane,
     at 32, 64 and 128 threads per block) and K8's lane walk (one thread
-    per lane) at D = 1..3 across the same batch sizes, each checked
-    against the wrapper's result.
+    per lane) at D = 1..3 across the same batch sizes, and K6's split (two
+    threads per lane at 32, 64 and 128 threads per block) and lane walk
+    (one thread per lane) at 1024-132,096 lanes, each checked against the
+    wrapper's result; where K6's two launches come close (12,288 and
+    16,384 lanes) it times them in turns over several rounds.
 
 The script prints one JSON line: per row each tree's ms (the mean of its
 two processes, CUDA events, median of 5 each) and whether all four
@@ -48,8 +60,10 @@ import hashlib
 import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -59,6 +73,16 @@ K3_SWEEP = {1024: (8, 16, 32, 64), 16384: (1, 2, 4, 8, 16)}
 K4_SWEEP_LANES = (1024, 2048, 4096, 8192, 16384)
 U4_SWEEP_BLOCKS = (32, 64, 128)  # threads per block of K8's and K9's split
 U4_KERNELS = ("msm_small_glv", "msm_small")
+CHAIN_N = 255  # the table build's doubles at window width 8
+CHAIN_LANES = (49, 129)  # the u64 and WNLA-64 generator sets
+K6_SWEEP_LANES = (1024, 4096, 8192, 12288, 16384, 17408, 32768, 66560, 132096)
+# (threads per lane, lanes per block) of K6's launches in the sweep
+K6_LAUNCHES = ((2, 16), (2, 32), (2, 64), (1, 32), (1, 64), (1, 128))
+# where K6's two launches come close: each timed in turns, this many rounds
+K6_CLOSE_LANES = (12288, 16384)
+K6_CLOSE_ROUNDS = 6
+# the table build's affine step: 32 windows of 2^8 entries of 49 and 129 generators
+AFFINE_SHAPES = ((32 * 49, 256), (32 * 129, 256))
 
 
 def load_chip_smoke(tree: str):
@@ -187,6 +211,72 @@ def u4_launches(cs, kernel, D):
     return out + ([(1, cs.cuda_msm.U4_LANE_BLOCK)] if kernel == "msm_small_glv" else [])
 
 
+def double_chain(cs, p, n):
+    """n successive doubles of p: one launch where the tree has the chain,
+    n single launches where it has not. -> three (16, n, B)."""
+    cc = cs.cuda_curve
+    if hasattr(cc, "pt_double_chain"):
+        return cc.pt_double_chain(*p, n)
+    outs, q = [], tuple(p)
+    for _ in range(n):
+        q = cc.pt_double(*q)
+        outs.append(q)
+    return tuple(torch.stack([o[c] for o in outs], dim=1) for c in range(3))
+
+
+def affine_step(cs, p):
+    """The table build's affine step over coords (16, M, NE): one launch of
+    `affine_rows` where the tree has it, the reference's `to_affine` (one
+    K2 inversion per entry) where it has not. -> (x, y), (16, M, NE)."""
+    if hasattr(cs.cuda_curve, "affine_rows"):
+        return cs.cuda_curve.affine_rows(*p)
+    shape = p.x.shape
+    x, y, _ = cs.dc.to_affine(cs.dc.PointJ(*(c.reshape(16, -1) for c in p)))
+    return x.reshape(shape), y.reshape(shape)
+
+
+def affine_inputs(cs, gen, M, NE, dev):
+    """M rows of NE random points, each row's first entry the identity, as
+    a table's are."""
+    p = cs.rand_points(gen, (M, NE), dev)
+    first = torch.zeros((M, NE), dtype=torch.bool, device=dev)
+    first[:, 0] = True
+    return cs.dc.pt_select(first, cs.dc.identity((M, NE), device=dev), p)
+
+
+def limb_digest(ts) -> str:
+    return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
+
+
+def table_build_seconds(cs, pts, reps: int = 3):
+    """(median seconds of `build_tables` over pts, digest of its words)."""
+    times, tab = [], None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tab = cs.cuda_fixed_base.build_tables(pts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), hashlib.sha256(tab.words.cpu().numpy().tobytes()).hexdigest()
+
+
+def scalar_mul_launch(cs, ins, nthr, lpb):
+    """This tree's K6 through its C entry point with nthr threads per lane
+    (2, the split, or 1) and lpb lanes per block."""
+    B = ins[0].shape[1]
+    flat = [cs.cuda_curve.flat_i32(t, t.shape) for t in ins]
+    outs = [torch.empty((16, B), dtype=torch.int32, device=ins[0].device) for _ in range(3)]
+    vp = ctypes.c_void_p
+    fn = cs._build.bind("ladder", "bppp_scalar_mul", [vp] * 7 + [ctypes.c_int] * 3 + [vp])
+    cs._build.check(fn(*(t.data_ptr() for t in flat + outs), B, nthr, lpb, cs._build.stream()),
+                    "scalar_mul")
+    return tuple(o.to(torch.int64) for o in outs)
+
+
+def k6_inputs(cs, gen, B, dev):
+    return list(cs.rand_points(gen, (B,), dev)) + [cs.rand_scalars(gen, (B,), cs.N_INT, dev)]
+
+
 def sweep(cs, dev, gen, full) -> list:
     out = []
     for B, cands in K3_SWEEP.items():
@@ -214,6 +304,26 @@ def sweep(cs, dev, gen, full) -> list:
                         kernel=kernel, D=D, B=B, threads_per_lane=nthr, lanes_per_block=lpb,
                         agree=digest(cs, u4_launch(cs, kernel, coords, ins, nthr, lpb)) == want,
                         ms=cs.time_ms(lambda: u4_launch(cs, kernel, coords, ins, nthr, lpb))))
+    for B in K6_SWEEP_LANES:
+        ins = k6_inputs(cs, gen, B, dev)
+        want = digest(cs, cs.cuda_ladder.scalar_mul(*ins))
+        for nthr, lpb in K6_LAUNCHES:
+            out.append(dict(kernel="scalar_mul", B=B, threads_per_lane=nthr, lanes_per_block=lpb,
+                            agree=digest(cs, scalar_mul_launch(cs, ins, nthr, lpb)) == want,
+                            ms=cs.time_ms(lambda: scalar_mul_launch(cs, ins, nthr, lpb))))
+    # the close calls: the split and the lane walk at 64 lanes per block in
+    # turns (split, lane, lane, split, ...), every round's time kept
+    for B in K6_CLOSE_LANES:
+        ins = k6_inputs(cs, gen, B, dev)
+        want = digest(cs, cs.cuda_ladder.scalar_mul(*ins))
+        times = {2: [], 1: []}
+        for r in range(K6_CLOSE_ROUNDS):
+            for nthr in ((2, 1) if r % 2 == 0 else (1, 2)):
+                times[nthr].append(cs.time_ms(lambda: scalar_mul_launch(cs, ins, nthr, 64)))
+        for nthr, ts in times.items():
+            out.append(dict(kernel="scalar_mul_in_turns", B=B, threads_per_lane=nthr,
+                            lanes_per_block=64, runs_ms=ts, ms=statistics.median(ts),
+                            agree=digest(cs, scalar_mul_launch(cs, ins, nthr, 64)) == want))
     return out
 
 
@@ -244,6 +354,26 @@ def worker(tree: str, with_sweep: bool) -> dict:
             rows.append(dict(kernel=kernel, row=f"D={D}", shape=[D, 16, B],
                              digest=digest(cs, wrapper(*coords, *ins)),
                              ms=cs.time_ms(lambda: wrapper(*coords, *ins))))
+    for F in CHAIN_LANES:
+        p = cs.rand_points(gen, (F,), dev)
+        rows.append(dict(kernel="pt_double", row=f"n={CHAIN_N} B={F}", shape=[16, CHAIN_N, F],
+                         digest=digest(cs, double_chain(cs, p, CHAIN_N)),
+                         ms=cs.time_ms(lambda: double_chain(cs, p, CHAIN_N))))
+    for B in K6_SWEEP_LANES + (203,):
+        ins = k6_inputs(cs, gen, B, dev)
+        rows.append(dict(kernel="scalar_mul", row=f"B={B}", shape=[16, B],
+                         digest=digest(cs, cs.cuda_ladder.scalar_mul(*ins)),
+                         ms=cs.time_ms(lambda: cs.cuda_ladder.scalar_mul(*ins))))
+    for M, NE in AFFINE_SHAPES:
+        p = affine_inputs(cs, gen, M, NE, dev)
+        rows.append(dict(kernel="affine_rows", row=f"M={M} NE={NE}", shape=[16, M, NE],
+                         digest=limb_digest(affine_step(cs, p)),
+                         ms=cs.time_ms(lambda: affine_step(cs, p))))
+        del p
+    for F in CHAIN_LANES:
+        seconds, words = table_build_seconds(cs, cs.rand_points(gen, (F,), dev))
+        rows.append(dict(kernel="build_tables", row=f"F={F}", shape=[F], digest=words,
+                         ms=seconds * 1e3))
     out = dict(tree=tree, memory=memory, rows=rows)
     if with_sweep:
         out["sweep"] = sweep(cs, dev, gen, tables[0][0])

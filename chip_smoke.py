@@ -11,7 +11,8 @@ kernel against its plain PyTorch version on the card (exact equality),
 and drives the port's paths at a batch of 1024 u64 range proofs:
 
   verify  `U64RangeProofDevice.verify(fast=True)`, the collapsed verifier
-          (also at a batch of 16384);
+          (also at a batch of 16384); the fixture's table build is timed
+          and must launch the doubling chain (K5b) once;
   mirror  `verify(fast=False)`, the verifier that folds the generators per
           round, on the same batch: its mask equals the expected one and
           the fast verifier's;
@@ -24,7 +25,8 @@ and drives the port's paths at a batch of 1024 u64 range proofs:
           launched on none of them;
   wnla    the standalone weight-norm linear argument at |l| = |n| = 16,
           32 and 64: commit + prove with the distinct lanes' bytes equal to
-          the oracle's, both verifiers on honest and tampered proofs.
+          the oracle's, both verifiers on honest and tampered proofs; each
+          table build timed, one K5b launch each.
 
 For each path it checks that every kernel of that path was launched and
 that no plain version was. The kernel comparison comes after the paths,
@@ -80,10 +82,15 @@ PLAIN_B = 64  # lanes the slow plain versions run on (taken from the same inputs
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
 # 32-bit multiply-adds in one modular multiply of csrc/field.cuh: the 8 x 8
-# schoolbook product plus the folds (p: 8 + 1; n: 40 + 25 + 5 + 5)
-MAD_MUL_P = 64 + 9
-MAD_MUL_N = 64 + 75
-MULS_ADD, MULS_MIXED, MULS_DBL = 16, 11, 7
+# schoolbook product (a square: 28 off-diagonal and 8 diagonal products)
+# plus the folds (p: 8 + 1; n: 40 + 25 + 5 + 5)
+MAD_MUL_P, MAD_SQR_P = 64 + 9, 36 + 9
+MAD_MUL_N, MAD_SQR_N = 64 + 75, 36 + 75
+# per point formula: a complete or incomplete Jacobian add (12 multiplies,
+# 4 squares), a mixed add (8, 3), a double (2, 5)
+MAD_ADD = 12 * MAD_MUL_P + 4 * MAD_SQR_P
+MAD_MIXED = 8 * MAD_MUL_P + 3 * MAD_SQR_P
+MAD_DBL = 2 * MAD_MUL_P + 5 * MAD_SQR_P
 
 COUNTERS = (cuda_keccak, cuda_msm, cuda_fixed_base, cuda_curve, cuda_ladder)
 
@@ -111,7 +118,8 @@ def variant_kernel(env: dict) -> str:
 
 # the kernels each path must launch (and no plain version)
 PATH_KERNELS = {
-    "verify": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add", "pt_double"),
+    "verify": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add", "pt_double",
+               "affine_rows"),
     "mirror": ("f1600", "pow_const", "msm_small_wnaf", "pt_add", "scalar_mul", "tree_sum"),
     "prove": ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add"),
 }
@@ -121,12 +129,12 @@ PATH_BANNED = {}
 # the non-default small-MSM switches: BPPP_WNAF=0 takes K8, BPPP_GLV=0 K9
 VARIANTS = {"glv": {"BPPP_WNAF": "0"}, "noglv": {"BPPP_GLV": "0"}}
 # (the variant runs reuse the verify phase's instance: its table build, the
-# only user of pt_double, is not part of them)
+# only user of pt_double and affine_rows, is not part of them)
 for _tag, _env in VARIANTS.items():
     for _path in BASE_PATHS:
         PATH_KERNELS[f"{_path}_{_tag}"] = tuple(
             variant_kernel(_env) if k == "msm_small_wnaf" else k for k in PATH_KERNELS[_path]
-            if k != "pt_double")
+            if k not in ("pt_double", "affine_rows"))
         PATH_BANNED[f"{_path}_{_tag}"] = ("msm_small_wnaf",)
 # the standalone WNLA at |l| = |n| = 16, 32, 64: commit (ladder + sum over
 # 1 + 2 sz points), prove, mirror verify, collapsed verify
@@ -285,9 +293,10 @@ def check_pow(gen, dev, B):
         assert int(got[:, 0].abs().sum()) == 0, "pow(0) must be 0"
         ms = time_ms(lambda: cuda_msm.pow_const(x, e, kind))
         digits = cuda_msm._pow_digits(e)
-        muls = 14 + 5 * (len(digits) - 1)
-        mad = MAD_MUL_P if kind == "p" else MAD_MUL_N
-        b_ms, by = bound(2 * 16 * 4 * B, 2 * mad * muls * B)
+        sqrs, muls = 4 * (len(digits) - 1), 14 + len(digits) - 1
+        mad = (MAD_MUL_P * muls + MAD_SQR_P * sqrs) if kind == "p" else \
+            (MAD_MUL_N * muls + MAD_SQR_N * sqrs)
+        b_ms, by = bound(2 * 16 * 4 * B, 2 * mad * B)
         out.append(dict(name=f"pow_const[{tag}]", err=err, ms=ms, plain_ms=plain_ms,
                         plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[16, B],
                         compared="limbs"))
@@ -312,7 +321,7 @@ def check_curve(gen, dev, B):
     ms = time_ms(lambda: cuda_curve.pt_add(*p, *q))
     plain_ms = time_ms(lambda: cuda_curve.pt_add_plain(*p, *q), reps=3)
     live = int((~(dc.pt_is_identity(p) | dc.pt_is_identity(q))).sum())
-    b_ms, by = bound(9 * 16 * 4 * B, 2 * MAD_MUL_P * MULS_ADD * live)
+    b_ms, by = bound(9 * 16 * 4 * B, 2 * MAD_ADD * live)
     add = dict(name="pt_add", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
                bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
     got = cuda_curve.pt_double(*p)
@@ -320,10 +329,61 @@ def check_curve(gen, dev, B):
     err = max_err(got, want)
     ms = time_ms(lambda: cuda_curve.pt_double(*p))
     plain_ms = time_ms(lambda: cuda_curve.pt_double_plain(*p), reps=3)
-    b_ms, by = bound(6 * 16 * 4 * B, 2 * MAD_MUL_P * MULS_DBL * B)
+    b_ms, by = bound(6 * 16 * 4 * B, 2 * MAD_DBL * B)
     dbl = dict(name="pt_double", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
                bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
     return [add, dbl]
+
+
+# the table build's chain: every double of a generator for window width 8,
+# on the u64 table's 49 generators and WNLA-64's 129
+CHAIN_N = 255
+CHAIN_LANES = (49, 129)
+
+
+def check_double_chain(gen, dev, B, n=CHAIN_N):
+    """K5b as the table build launches it: n successive doubles of B
+    generators in one launch, every one against the plain chain (the same
+    formula n times) on limbs. Lane 0 holds the identity."""
+    p = rand_points(gen, (B,), dev)
+    p = dc.pt_select(torch.arange(B, device=dev) == 0, dc.identity((B,), device=dev), p)
+    got = cuda_curve.pt_double_chain(*p, n)
+    want, plain_ms = timed_once(lambda: cuda_curve.pt_double_chain_plain(*p, n))
+    err = max_err(got, want)
+    assert bool(dc.pt_is_identity(dc.PointJ(*(c[:, -1] for c in got)))[0]), "doubles of the identity"
+    ms = time_ms(lambda: cuda_curve.pt_double_chain(*p, n))
+    b_ms, by = bound((3 + 3 * n) * 16 * 4 * B, 2 * MAD_DBL * n * (B - 1))
+    return dict(name=f"pt_double[n={n} B={B}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+                bound_ms=b_ms, bound_by=by, shape=[16, n, B], compared="limbs")
+
+
+# the table build's rows: NW = 32 windows of 2^8 entries for each of the
+# u64 table's 49 generators and WNLA-64's 129
+AFFINE_SHAPES = ((32 * 49, 256), (32 * 129, 256))
+
+
+def check_affine_rows(gen, dev, M, NE):
+    """The table build's affine step on M rows of NE Jacobian points, the
+    first entry of each row and a few others the identity, as a table's
+    are, against the plain product tree on limbs."""
+    p = rand_points(gen, (M, NE), dev)
+    dead = torch.zeros((M, NE), dtype=torch.bool, device=dev)
+    dead[:, 0] = True
+    dead[M // 2] = True  # a row of identities only
+    dead[M - 1, NE - 1] = True
+    p = dc.pt_select(dead, dc.identity((M, NE), device=dev), p)
+    got = cuda_curve.affine_rows(*p)
+    want, plain_ms = timed_once(lambda: cuda_curve.affine_rows_plain(*p))
+    err = max_err(got, want)
+    ms = time_ms(lambda: cuda_curve.affine_rows(*p))
+    # per live entry 6 multiplies and a square; per row with a live entry one
+    # inversion (78 multiplies, 252 squares)
+    live = int((~dead).sum())
+    rows = int((~dead).any(dim=1).sum())
+    mads = live * (6 * MAD_MUL_P + MAD_SQR_P) + rows * (78 * MAD_MUL_P + 252 * MAD_SQR_P)
+    b_ms, by = bound(5 * 16 * 4 * M * NE, 2 * mads)
+    return dict(name=f"affine_rows[M={M} NE={NE}]", err=err, ms=ms, plain_ms=plain_ms,
+                plain_B=M, bound_ms=b_ms, bound_by=by, shape=[16, M, NE], compared="limbs")
 
 
 def check_fixed(gen, dev, B, tables, tag):
@@ -342,7 +402,7 @@ def check_fixed(gen, dev, B, tables, tag):
     # the table rows the call walks (a row view reads F of the table's rows)
     row_bytes = tables.n_windows * (1 << tables.w_bits) * 64
     nbytes = row_bytes * F + (16 * F + 3 * 16) * 4 * B
-    b_ms, by = bound(nbytes, 2 * MAD_MUL_P * MULS_MIXED * live)
+    b_ms, by = bound(nbytes, 2 * MAD_MIXED * live)
     if tables.rows is not None:
         tag += " rows"
     return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
@@ -389,26 +449,27 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
     # before the first window) and the table builds on every lane, one add
     # per nonzero digit, one beta multiply per nonzero odd GLV half (K8) or
     # per nonzero digit of one (K4)
-    table = D * (MULS_DBL + 13 * MULS_ADD)
+    table = D * (MAD_DBL + 13 * MAD_ADD)
     if kernel == "msm_small":
         digits = torch.stack([(kk[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])
-        muls = (4 * 63 * MULS_DBL + table) * B + MULS_ADD * int((digits != 0).sum())
+        mads = (4 * 63 * MAD_DBL + table) * B + MAD_ADD * int((digits != 0).sum())
         nbytes = (4 * D + 3) * 16 * 4 * B
     elif kernel == "msm_small_glv":
         mags = ins[0].movedim(0, 1)  # (16, 2D, B)
         digits = torch.stack([(mags[w // 4] >> (4 * (w % 4))) & 15 for w in range(glv.GLV_WINDOWS)])
         live = int((digits != 0).sum())
         phi = int((mags[:, 1::2] != 0).any(dim=0).sum())
-        muls = (4 * (glv.GLV_WINDOWS - 1) * MULS_DBL + table) * B + MULS_ADD * live + phi
+        mads = (4 * (glv.GLV_WINDOWS - 1) * MAD_DBL + table) * B + MAD_ADD * live \
+            + MAD_MUL_P * phi
         nbytes = ((5 * D + 3) * 16 + 2 * D) * 4 * B
     else:
         dig = ins[0]
         live = int(((dig & 15) != 0).sum())
         phi = int(((dig.reshape(glv.GLV_WINDOWS, D, 2, B)[:, :, 1] & 15) != 0).sum())
-        muls = (4 * glv.GLV_WINDOWS * MULS_DBL + D * (MULS_DBL + 6 * MULS_ADD)) * B \
-            + MULS_ADD * live + phi
+        mads = (4 * glv.GLV_WINDOWS * MAD_DBL + D * (MAD_DBL + 6 * MAD_ADD)) * B \
+            + MAD_ADD * live + MAD_MUL_P * phi
         nbytes = ((3 * D + 3) * 16 + glv.GLV_WINDOWS * 2 * D) * 4 * B
-    b_ms, by = bound(nbytes, 2 * MAD_MUL_P * muls)
+    b_ms, by = bound(nbytes, 2 * mads)
     plan = getattr(cuda_msm, f"{kernel}_plan")(D, B)
     plan = dict(zip(("threads_per_lane", "lanes_per_block"), plan))
     return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
@@ -416,16 +477,48 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
                 compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
 
 
+# K6's edge lanes: (lane, scalar) — k = 0, 1, n - 1, a small scalar, lambda
+# (k1 = 0), 1 + lambda, n - lambda (a negative k2), 5 (k2 = 0), 2^128 + 1,
+# and two scalars at or above n (n + 5, 2^256 - 1), which the kernel reduces
+# once and the plain ladder walks as they are; lane 3 holds the identity point
+K6_EDGE = ((0, 0), (1, 1), (2, N_INT - 1), (4, 0x1F), (5, glv.LAMBDA), (6, 1 + glv.LAMBDA),
+           (7, N_INT - glv.LAMBDA), (8, 5), (9, (1 << 128) + 1), (10, N_INT + 5),
+           (11, (1 << 256) - 1))
+
+
+def k6_bound(P, k):
+    """The least time of the GLV walk's work on these inputs: per lane with
+    a live point and a nonzero scalar, the table [1..15] P (1 double, 13
+    adds), 4 doubles per window below the top nonzero window of the larger
+    half, one add per nonzero digit of either half, beta's multiply for a
+    nonzero k2 and the join of two nonzero halves."""
+    B = k.shape[-1]
+    # k below 2^256 < 2n reduced once, as the kernel does
+    m1, _, m2, _ = glv.decompose(f.fn_add(k, torch.zeros_like(k)))
+    dig = [torch.stack([(m[w // 4] >> (4 * (w % 4))) & 15 for w in range(glv.GLV_WINDOWS)])
+           for m in (m1, m2)]  # (33, B) each
+    nz = torch.stack(dig) != 0  # (2, 33, B)
+    any_nz = nz.any(dim=0)
+    live = ~dc.pt_is_identity(P) & any_nz.any(dim=0)
+    wins = torch.arange(glv.GLV_WINDOWS, device=k.device)[:, None]
+    top = torch.where(any_nz, wins, 0).max(dim=0).values
+    halves = nz.any(dim=1)  # (2, B)
+    mads = (MAD_DBL + 13 * MAD_ADD + 4 * MAD_DBL * top + MAD_ADD * nz.sum(dim=(0, 1))
+            + MAD_MUL_P * halves[1] + MAD_ADD * (halves[0] & halves[1]))
+    return bound(7 * 16 * 4 * B, 2 * int(mads[live].sum()))
+
+
 def check_scalar_mul(gen, dev, sizes):
     """K6 at each lane count of `sizes`, each launch on the leading lanes of
     one set of inputs, against ONE call of the plain version on the plain
     lanes of every launch: the eager ladder is bound by its launches and
-    costs about as much for a thousand lanes as for 64. -> one row per size."""
+    costs about as much for a thousand lanes as for 64. The kernel walks
+    GLV halves with incomplete adds where the plain ladder uses complete
+    ones: compared as points. -> one row per size."""
     top = max(sizes)
     p = rand_points(gen, (top,), dev)
     k = rand_scalars(gen, (top,), N_INT, dev)
-    # lanes 0..4: k = 0, k = 1, k = n - 1, P = identity, a small scalar
-    for lane, val in ((0, 0), (1, 1), (2, N_INT - 1), (4, 0x1F)):
+    for lane, val in K6_EDGE:
         k[:, lane] = torch.from_numpy(f.int_to_limbs(val))[:, 0].to(dev)
     p = dc.pt_select(torch.arange(top, device=dev) == 3, dc.identity((top,), device=dev), p)
 
@@ -441,30 +534,24 @@ def check_scalar_mul(gen, dev, sizes):
         assert bool(dc.pt_eq(out, dc.PointJ(*ins[:3]))[1]), "k = 1 must give P"
         assert bool(dc.pt_eq(out, dc.pt_neg(dc.PointJ(*ins[:3])))[2]), "k = n - 1 must give -P"
         lanes = plain_lanes(B, dev)
-        got_lanes.append([g[:, lanes] for g in got])
+        got_lanes.append(dc.compress(out)[:, lanes])
         picks.append(lanes)
     idx = torch.cat(picks)
     small = [c[:, idx].contiguous() for c in p] + [k[:, idx].contiguous()]
     want, plain_ms = timed_once(lambda: cuda_ladder.scalar_mul_plain(*small))
+    want = dc.compress(dc.PointJ(*want))
     rows, off = [], 0
     for B, got, lanes in zip(sizes, got_lanes, picks):
-        err = max_err(got, [w[:, off:off + len(lanes)] for w in want])
+        err = max_err(got, want[:, off:off + len(lanes)])
         off += len(lanes)
         ins = inputs(B)
         ms = time_ms(lambda: cuda_ladder.scalar_mul(*ins))
-        # work this run's data needs: nothing for an identity point or a zero
-        # scalar; else the 14 table adds, the doubles below the top nonzero
-        # window and one add per nonzero window
-        kb = ins[3]
-        digits = torch.stack([(kb[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])  # (64, B)
-        live = ~dc.pt_is_identity(dc.PointJ(*ins[:3])) & (digits != 0).any(dim=0)
-        top_w = torch.where(digits != 0, torch.arange(64, device=dev)[:, None], 0).max(dim=0).values
-        adds = int((14 + (digits != 0).sum(dim=0))[live].sum())
-        dbls = int((4 * top_w)[live].sum())
-        b_ms, by = bound(7 * 16 * 4 * B, 2 * MAD_MUL_P * (MULS_ADD * adds + MULS_DBL * dbls))
-        rows.append(dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms,
+        b_ms, by = k6_bound(dc.PointJ(*ins[:3]), ins[3])
+        plan = dict(zip(("threads_per_lane", "lanes_per_block"), cuda_ladder.scalar_mul_plan(B)))
+        rows.append(dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
                          plain_B=len(idx), bound_ms=b_ms, bound_by=by, shape=[16, B],
-                         compared="limbs (one plain call over the plain lanes of every size)"))
+                         compared="compressed bytes (one plain call over the plain lanes of "
+                                  "every size; kernel adds are incomplete, plain adds complete)"))
     return rows
 
 
@@ -485,7 +572,7 @@ def check_tree_sum(gen, dev, L, B):
     err = max(err, max_err(dc.compress(dc.PointJ(*got)), ref))
     ms = time_ms(lambda: cuda_ladder.tree_sum(*p))
     live_adds = int((~dead).sum()) - int((~dead).any(dim=0).sum())
-    b_ms, by = bound((3 * L + 3) * 16 * 4 * B, 2 * MAD_MUL_P * MULS_ADD * live_adds)
+    b_ms, by = bound((3 * L + 3) * 16 * 4 * B, 2 * MAD_ADD * live_adds)
     return dict(name=f"tree_sum[L={L}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
                 bound_ms=b_ms, bound_by=by, shape=[16, L, B],
                 compared="limbs against the chained incomplete adds, compressed bytes "
@@ -511,7 +598,7 @@ TREE_SUM_L = (17,)
 
 
 def new_shape_log() -> dict:
-    return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}}
+    return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}, "table_builds": []}
 
 
 @contextlib.contextmanager
@@ -553,11 +640,23 @@ def shape_plan(log, known_tables=()):
             [tw for key, tw in log["fixed_msm"].items() if key not in known])
 
 
+def table_build_plan(log):
+    """What the kernels phase holds the table build's kernels at: the
+    fixed shapes and every one that the table builds in `log` (each as
+    `timing_table_builds` notes it) gave them. -> (K5b chain (lanes,
+    doubles), affine_rows (rows, entries))."""
+    builds = (log or new_shape_log())["table_builds"]
+    return (sorted({(F, CHAIN_N) for F in CHAIN_LANES}
+                   | {tuple(s) for b in builds for s in b["chain"]}),
+            sorted(set(AFFINE_SHAPES) | {tuple(s) for b in builds for s in b["affine"]}))
+
+
 def phase_kernels(dev, tables, launches=None, shapes=None):
     """Every kernel against its plain version on the card. `launches`: the
     main path's counts, reported beside each kernel when given; `shapes`:
     the log of `recording_shapes` over the paths, whose K3, K6 and K7
-    shapes get rows too."""
+    shapes get rows too, with the fixtures' table builds, whose K5b chain
+    and affine_rows shapes get rows too."""
     gen = np.random.default_rng(2024)
     launches = launches or {}
     rows = []
@@ -572,6 +671,13 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R"))
     k6_lanes, k7_points, k3_tables = shape_plan(
         shapes, (tables["full"], tables["gv"], r_rows))
+    # the table build's doubling chain and affine step at every shape a
+    # build gave them (the u64 table's 49 generators, WNLA's 33 / 65 / 129)
+    chains, affine = table_build_plan(shapes)
+    for F, n in chains:
+        rows.append(check_double_chain(gen, dev, F, n))
+    for M, NE in affine:
+        rows.append(check_affine_rows(gen, dev, M, NE))
     # every other table or row subset a path walked: the u64 prover's other
     # subsets, the standalone WNLA's tables over 1 + 2 sz rows and subsets
     for i, (tab, where) in enumerate(k3_tables):
@@ -609,6 +715,8 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     ragged = [check_keccak(gen, dev, 77)]
     ragged += check_pow(gen, dev, 131)
     ragged += check_curve(gen, dev, 201)
+    ragged.append(check_double_chain(gen, dev, 37))
+    ragged.append(check_affine_rows(gen, dev, 37, 16))
     ragged.append(check_fixed(gen, dev, 67, tables["gv"], "F=17"))
     ragged.append(check_msm_small(gen, dev, 70, 3))
     ragged.append(check_msm_small(gen, dev, 77, 2))
@@ -636,6 +744,63 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
 
 
 # -- phase: verify ------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def timing_table_builds(log: list):
+    """For the block, time each fixed-base table build (a fixture's
+    set-up), count its K5b and affine_rows launches and note the shapes it
+    gave them: appends {points, w_bits, seconds, pt_double_launches,
+    affine_rows_launches, chain: [[lanes, doubles]], affine: [[rows,
+    entries]]} to `log` per build."""
+    from bppp_tpu_torch.ops import fixed_base
+    from bppp_tpu_torch.protocol import u64 as pu64
+
+    orig = cuda_fixed_base.build_tables
+    orig_curve = cuda_curve.pt_double_chain, cuda_curve.affine_rows
+    given = {"chain": [], "affine": []}
+
+    def pt_double_chain(X, Y, Z, n):
+        given["chain"].append([X.shape[1:].numel(), n])
+        return orig_curve[0](X, Y, Z, n)
+
+    def affine_rows(X, Y, Z):
+        given["affine"].append(list(X.shape[1:]))
+        return orig_curve[1](X, Y, Z)
+
+    def build_tables(points, w_bits=cuda_fixed_base.DEFAULT_W):
+        for v in given.values():
+            v.clear()
+        torch.cuda.synchronize()
+        before = dict(cuda_curve.LAUNCHES)
+        t0 = time.perf_counter()
+        tab = orig(points, w_bits)
+        torch.cuda.synchronize()
+        log.append(dict(points=int(points.x.shape[1]), w_bits=w_bits,
+                        seconds=time.perf_counter() - t0,
+                        **{f"{k}_launches": cuda_curve.LAUNCHES[k] - before[k]
+                           for k in ("pt_double", "affine_rows")},
+                        **{k: list(v) for k, v in given.items()}))
+        return tab
+
+    mods = (cuda_fixed_base, fixed_base, pu64)
+    for m in mods:
+        m.build_tables = build_tables
+    cuda_curve.pt_double_chain, cuda_curve.affine_rows = pt_double_chain, affine_rows
+    try:
+        yield log
+    finally:
+        for m in mods:
+            m.build_tables = orig
+        cuda_curve.pt_double_chain, cuda_curve.affine_rows = orig_curve
+
+
+def fail_on_table_builds(where: str, builds: list) -> None:
+    """Each table build launches the doubling chain once and affine_rows once."""
+    bad = [b for b in builds if b["pt_double_launches"] != 1 or b["affine_rows_launches"] != 1]
+    if not builds or bad:
+        raise SystemExit(f"{where}: table builds {builds} must launch pt_double and "
+                         "affine_rows once each")
 
 
 def make_batch(public, rng, B, dev):
@@ -743,7 +908,9 @@ def phase_verify(dev):
     observed masks)."""
     reset_counts()
     t0 = time.time()
-    public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
+    builds = []
+    with timing_table_builds(builds):
+        public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
     torch.cuda.synchronize()
     setup_s = time.time() - t0
     cb, pb, want, oracle = make_batch(public, rng, BATCH, dev)
@@ -775,7 +942,7 @@ def phase_verify(dev):
         "verify", ok=not wrong and not missing and not plain_used and big_wrong == 0,
         batch=BATCH, accepted=int(got.sum()), rejected_lanes=torch.nonzero(~got).flatten().tolist(),
         wrong_lanes=wrong, oracle=oracle, launches=launches, plain_calls=plain_used,
-        fixture_seconds=setup_s,
+        fixture_seconds=setup_s, table_builds=builds,
         ms_per_batch_1024=ms_1k, verifies_per_s_1024=BATCH / ms_1k * 1e3,
         ms_per_batch_16384=ms_16k, verifies_per_s_16384=BIG_BATCH / ms_16k * 1e3,
         wrong_lanes_16384=big_wrong,
@@ -783,7 +950,9 @@ def phase_verify(dev):
     if wrong or big_wrong:
         raise SystemExit(f"accept mask differs from the expected one at lanes {wrong} ({big_wrong} at 16384)")
     fail_on_counts("verify", launches, missing, plain_used)
-    ctx = dict(public=public, device_obj=device_obj, rng=rng, cb=cb, pb=pb, want=want, fast_mask=got)
+    fail_on_table_builds("verify", builds)
+    ctx = dict(public=public, device_obj=device_obj, rng=rng, cb=cb, pb=pb, want=want, fast_mask=got,
+               table_builds=builds)
     return launches, ctx
 
 
@@ -978,12 +1147,15 @@ def phase_wnla(dev):
     """The standalone WNLA at |l| = |n| = 16, 32, 64 over a batch of 1024:
     commit + prove with the proof bytes of the distinct lanes against the
     oracle's, then the mirror and the collapsed verifier on the honest
-    proofs and with one lane tampered. -> {path: launches}."""
-    out = {}
+    proofs and with one lane tampered. -> ({path: launches}, the fixtures'
+    table builds)."""
+    out, all_builds = {}, []
     for sz in WNLA_SIZES:
         path = f"wnla{sz}"
         t0 = time.time()
-        fx = wnla_fixture(f"{SEED} wnla {sz}", sz, sz, BATCH, device=dev, tables="auto")
+        builds = []
+        with timing_table_builds(builds):
+            fx = wnla_fixture(f"{SEED} wnla {sz}", sz, sz, BATCH, device=dev, tables="auto")
         torch.cuda.synchronize()
         setup_s = time.time() - t0
         d, n = fx.dev, len(fx.lanes)
@@ -1028,7 +1200,7 @@ def phase_wnla(dev):
             size=sz, rounds=proof.x.x.shape[1], batch=BATCH, distinct_lanes=n,
             fields_differing_from_oracle=differing, wrong_lanes=wrong,
             launches=out[path], plain_calls=plain_used, fixture_seconds=setup_s,
-            table_points=d.tables.n_points, table_bytes=d.tables.words.numel() * 4,
+            table_builds=builds, table_points=d.tables.n_points, table_bytes=d.tables.words.numel() * 4,
             table_subsets=len(d.tables.subsets),
             row_index_bytes=sum(t.rows.numel() * 4 for t in d.tables.subsets.values()),
             ms_per_batch_commit_and_prove=ms_prove, ms_per_batch_verify=ms_verify,
@@ -1039,13 +1211,17 @@ def phase_wnla(dev):
         if wrong:
             raise SystemExit(f"WNLA {sz}: masks wrong at {wrong}")
         fail_on_counts(path, out[path], missing, plain_used)
-    return out
+        fail_on_table_builds(path, builds)
+        all_builds += builds
+    return out, all_builds
 
 
-HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_kernel",
+HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_chain_kernel",
+                "affine_rows_kernel",
                 "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
                 "msm_small_wnaf_lane_kernel", "msm_small_glv_kernel", "msm_small_glv_lane_kernel",
-                "msm_small_kernel", "scalar_mul_kernel", "tree_sum_kernel")
+                "msm_small_kernel", "scalar_mul_kernel", "scalar_mul_lane_kernel",
+                "tree_sum_kernel")
 
 
 def phase_profile(dev, path: str):
@@ -1125,13 +1301,18 @@ REPLACES = {
     "tree_sum": ("bppp_tpu_torch/csrc/ladder.cu", "bppp_tpu/ops/pallas_msm.py:748"),
     "msm_small_glv": ("bppp_tpu_torch/csrc/msm_small_u4.cu", "bppp_tpu/ops/pallas_msm.py:517"),
     "msm_small": ("bppp_tpu_torch/csrc/msm_small_u4.cu", "bppp_tpu/ops/pallas_msm.py:359"),
+    # the table build's affine step: where the reference inverts every entry
+    # with K2 (to_affine in pallas_fixed_base.py's build, fp_inv -> pow_const_flat)
+    "affine_rows": ("bppp_tpu_torch/csrc/curve.cu", "bppp_tpu/ops/pallas_msm.py:124"),
 }
 # the row of the kernels phase that stands for each kernel at the main path's shapes
 MAIN_ROW = {
     "f1600": "f1600", "pow_const": "pow_const[fp_sqrt]", "fixed_msm": "fixed_msm[F=49]",
-    "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add", "pt_double": "pt_double",
+    "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add",
+    "pt_double": f"pt_double[n={CHAIN_N} B=49]",
     "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": "tree_sum[L=17]",
     "msm_small_glv": "msm_small_glv[D=3]", "msm_small": "msm_small[D=3]",
+    "affine_rows": f"affine_rows[M={AFFINE_SHAPES[0][0]} NE={AFFINE_SHAPES[0][1]}]",
 }
 # the path whose run gives a kernel's `launches` in the kernels line
 COUNTED_ON = {"scalar_mul": "mirror", "tree_sum": "mirror",
@@ -1185,8 +1366,10 @@ def main() -> int:
     with recording_shapes(shapes, "variants"):
         by_path.update(phase_variants(dev, ctx))
     with recording_shapes(shapes, "wnla"):
-        by_path.update(phase_wnla(dev))
+        wnla, wnla_builds = phase_wnla(dev)
+        by_path.update(wnla)
     counted = {name: by_path[COUNTED_ON.get(name, "verify")][name] for name in REPLACES}
+    shapes["table_builds"] = ctx["table_builds"] + wnla_builds
     rows = {r["name"]: r for r in phase_kernels(dev, ctx["device_obj"].tables, counted, shapes)}
     kernels = []
     for name, (source, replaces) in REPLACES.items():

@@ -100,7 +100,7 @@ def test_chip_smoke_compares_lanes_from_both_ends_of_a_launch(B):
 
 @pytest.mark.parametrize("name", ["f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
                                   "pt_double", "scalar_mul", "tree_sum", "msm_small_glv",
-                                  "msm_small"])
+                                  "msm_small", "affine_rows"])
 def test_chip_smoke_names_each_kernel_its_source_and_what_it_replaces(name):
     cs = _chip_smoke()
     source, replaces = cs.REPLACES[name]
@@ -235,3 +235,52 @@ def test_chip_smoke_gives_every_prover_tuple_a_row_index_row(monkeypatch):
     src = inspect.getsource(cs.phase_kernels)
     assert "for i, (tab, where) in enumerate(k3_tables):" in src
     assert 'tag += " rows"' in inspect.getsource(cs.check_fixed)
+
+
+@pytest.mark.parametrize("F", [33, 49, 65, 129])
+def test_chip_smoke_holds_the_table_build_at_every_shape_a_build_gives(monkeypatch, F):
+    """The fixtures' table builds are timed through `timing_table_builds`,
+    which also notes what each build gives the doubling chain (F
+    generators, 255 doubles) and the affine step (32 F rows of 256
+    entries), here through stand-ins for the build and the two wrappers;
+    the kernels phase adds a row for each beside the fixed u64 / WNLA-64
+    shapes."""
+    import inspect
+
+    import torch
+
+    cs = _chip_smoke()
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs.cuda_curve, "pt_double_chain", lambda *a: calls.append("chain"))
+    monkeypatch.setattr(cs.cuda_curve, "affine_rows", lambda *a: calls.append("affine"))
+
+    def build_tables(points, w_bits):
+        cs.cuda_curve.pt_double_chain(points.x, points.y, points.z, cs.CHAIN_N)
+        ents = torch.zeros((16, 32 * points.x.shape[1], 1 << w_bits), dtype=torch.int64)
+        cs.cuda_curve.affine_rows(ents, ents, ents)
+
+    from bppp_tpu_torch.ops import fixed_base
+    from bppp_tpu_torch.protocol import u64 as pu64
+
+    # every module that `timing_table_builds` rebinds, so each gets its own back
+    for mod in (cs.cuda_fixed_base, fixed_base, pu64):
+        monkeypatch.setattr(mod, "build_tables", build_tables)
+    stand_ins = (cs.cuda_curve.pt_double_chain, cs.cuda_curve.affine_rows,
+                 cs.cuda_fixed_base.build_tables)
+    builds = []
+    with cs.timing_table_builds(builds):
+        pts = cs.dc.identity((F,), device="cpu")
+        cs.cuda_fixed_base.build_tables(pts, 8)
+    assert calls == ["chain", "affine"]
+    assert (cs.cuda_curve.pt_double_chain, cs.cuda_curve.affine_rows,
+            cs.cuda_fixed_base.build_tables) == stand_ins
+    assert [(b["points"], b["chain"], b["affine"]) for b in builds] == [
+        (F, [[F, cs.CHAIN_N]], [[32 * F, 256]])]
+    log = cs.new_shape_log()
+    log["table_builds"] = builds
+    chains, affine = cs.table_build_plan(log)
+    assert (F, cs.CHAIN_N) in chains and {(f, cs.CHAIN_N) for f in cs.CHAIN_LANES} <= set(chains)
+    assert (32 * F, 256) in affine and set(cs.AFFINE_SHAPES) <= set(affine)
+    assert "table_build_plan(shapes)" in inspect.getsource(cs.phase_kernels)
+    assert 'shapes["table_builds"] = ctx["table_builds"] + wnla_builds' in inspect.getsource(cs.main)

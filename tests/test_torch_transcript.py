@@ -156,6 +156,20 @@ def test_field_constants_in_cuda_header():
     assert pow(glv.BETA, 3, P) == 1 and pow(glv.LAMBDA, 3, N) == 1
 
 
+def test_glv_constants_in_cuda_header():
+    """The words K6 splits its scalars with in the kernel: lambda, the
+    lattice's |b1| and b2, the rounding constants G1, G2 and floor(n / 2),
+    against `ops/glv.py`."""
+    arrays = _c_arrays("field.cuh")
+    assert arrays["LAMBDA_WORDS"] == _words(glv.LAMBDA, 8)
+    assert arrays["B1ABS_WORDS"] == _words(glv._B1_ABS, 8)
+    assert arrays["B2_WORDS"] == _words(glv._B2, 8)
+    assert arrays["G1_WORDS"] == _words(glv._G1, 8)
+    assert arrays["G2_WORDS"] == _words(glv._G2, 8)
+    assert arrays["HALF_N_WORDS"] == _words(N // 2, 8)
+    assert glv._G2 < (1 << 256) and glv._G1 < (1 << 256)  # 8 words hold them
+
+
 def test_glv_window_count_in_cuda_source():
     with open(os.path.join(CSRC, "msm_small.cu")) as fh:
         m = re.search(r"GLV_WINDOWS\s*=\s*(\d+)", fh.read())
