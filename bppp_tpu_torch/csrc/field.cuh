@@ -14,14 +14,19 @@
 //   F_n: 2^256 = C_N = 2^256 - n (129 bits)   three folds + conditional subtract
 // so results equal the plain PyTorch versions limb for limb.
 //
+// fe_load64 / fe_store64 read and write the port's int64 limb tensors as they
+// stand (a limb stride and a lane stride, 0 for a broadcast operand), so a
+// wrapper needs no narrowing or widening pass around its launch.
+//
 // A square has its own product, sqr_wide: the 28 products a[i] * a[j] with
 // i < j, doubled by a shift, plus the 8 diagonal squares — 36 word products
 // where mul_wide's schoolbook takes 64. Its 512-bit result is the same
-// number, so sqr_p(a) equals mul_p(a, a) limb for limb. The point formulas
-// square through it: 5 of a double's 7 multiplies, 4 of an add's 16. In a
-// kernel that runs one lane's series of dependent multiplies (every walk
-// here is latency-bound at the paths' batches) fewer products per square
-// shorten the series.
+// number, so sqr_p(a) equals mul_p(a, a) limb for limb, and sqr_n(a)
+// equals fe_mul<false>(a, a). The point formulas square through it: 5 of a
+// double's 7 multiplies, 4 of an add's 16; the exponentiation (K2) squares
+// through fe_sqr. In a kernel that runs one lane's series of dependent
+// multiplies (every walk here is latency-bound at the paths' batches) fewer
+// products per square shorten the series.
 #pragma once
 
 #include <stdint.h>
@@ -95,6 +100,30 @@ __device__ __forceinline__ void fe_store(uint32_t* p, size_t stride, size_t lane
   for (int k = 0; k < 8; k++) {
     p[(size_t)(2 * k) * stride + lane] = a.v[k] & 0xFFFFu;
     p[(size_t)(2 * k + 1) * stride + lane] = a.v[k] >> 16;
+  }
+}
+
+// The same layout held as the port's int64 limb tensors, read and written
+// in place: element i of lane b at p[i * limb_stride + b * lane_stride]
+// (lane_stride 0 broadcasts one lane over the batch). Only the low 16 bits
+// of each limb are read, as fe_load reads them.
+__device__ __forceinline__ fe fe_load64(const int64_t* p, long long limb_stride, long long off) {
+  fe r;
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    uint32_t lo = (uint32_t)p[(2 * k) * limb_stride + off];
+    uint32_t hi = (uint32_t)p[(2 * k + 1) * limb_stride + off];
+    r.v[k] = (lo & 0xFFFFu) | (hi << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_store64(int64_t* p, long long limb_stride, long long off,
+                                           const fe& a) {
+#pragma unroll
+  for (int k = 0; k < 8; k++) {
+    p[(2 * k) * limb_stride + off] = a.v[k] & 0xFFFFu;
+    p[(2 * k + 1) * limb_stride + off] = a.v[k] >> 16;
   }
 }
 
@@ -376,6 +405,16 @@ __device__ __forceinline__ fe sqr_p(const fe& a) {
   uint32_t w[16];
   sqr_wide(w, a);
   return fold_p(w);
+}
+__device__ __forceinline__ fe sqr_n(const fe& a) {
+  uint32_t w[16];
+  sqr_wide(w, a);
+  return fold_n(w);
+}
+// a * a by the dedicated square, limb-equal to fe_mul<IS_P>(a, a)
+template <bool IS_P>
+__device__ __forceinline__ fe fe_sqr(const fe& a) {
+  return IS_P ? sqr_p(a) : sqr_n(a);
 }
 __device__ __forceinline__ fe add_p(const fe& a, const fe& b) { return fe_add<true>(a, b); }
 __device__ __forceinline__ fe sub_p(const fe& a, const fe& b) { return fe_sub<true>(a, b); }

@@ -2,20 +2,27 @@
 
 Counterpart of `bppp_tpu/ops/pallas_curve.py`. The wrappers take and
 return the interchange layout: coordinates as (16, *batch) int64 limb
-tensors. On a CUDA tensor a wrapper narrows to int32 storage, launches
-its kernel from `csrc/curve.cu` on the current stream and widens the
-result; it never synchronises. On a CPU tensor — and only there — it
-runs the plain PyTorch version below.
+tensors. On a CUDA tensor a wrapper launches its kernel from
+`csrc/curve.cu` on the current stream and never synchronises; K5b and
+`affine_rows` narrow to int32 storage first and widen the result, K5a
+reads and writes the int64 limbs where they lie. On a CPU tensor — and
+only there — a wrapper runs the plain PyTorch version below.
 
 Replaces: `pallas_curve._pt_add_kernel` (`pt_add_flat`) and
 `pallas_curve._pt_double_kernel` (`pt_double_flat`).
 
-K5a `pt_add`: bound on an H100 by bytes. It moves 9 * 64 bytes per lane
-and does 16 modular multiplies of 73 32-bit multiply-adds (24 multiplies
-on a doubling collision); at the card's peak rates the traffic takes about
-twice as long as the arithmetic. All operands of one lane stay in one
-thread's registers for the whole formula; the interchange layout (one
-16-bit limb per 32-bit word) is what doubles the bytes.
+K5a `pt_add`: bound on an H100 by bytes. It moves 9 * 128 bytes per lane
+(int64 limbs; a broadcast operand's one lane once) and does 16 modular
+multiplies (23 on a doubling collision). The paths add a few points per
+proof, 1,024 lanes, where one thread per lane runs the 16 products in a
+row on a nearly empty card. The formula is 5 products deep, so T threads
+of one warp share a lane and split each dependency level's products,
+passing the results by warp shuffle (`pt_add_plan`: 4 threads up to 8,192
+lanes, 2 beyond, up to the table build's 200,704; one thread per lane was
+slower at every batch measured). Each operand goes to the kernel as a
+pointer, a limb stride and a lane stride (`lane_view`: 0 for an operand
+broadcast over the batch), so a call is one launch; only an operand whose
+batch axes do not fold into one strided axis is copied first.
 
 K5b `pt_double_chain`: the n successive doubles [2^t] P, t = 1..n, of each
 lane's point in ONE launch, every one written out as (16, n, *batch). Its
@@ -46,6 +53,7 @@ order, so they agree in (X, Y, Z) limb for limb, not only as points.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -61,11 +69,50 @@ _VP = _build.VP
 def flat_i32(t: torch.Tensor, shape) -> torch.Tensor:
     """Broadcast an int64 limb tensor on the card to `shape`, narrow it to
     int32 and flatten the batch axes: (16, *shape[1:]) -> contiguous (16, B)."""
+    _check_operand(t)
+    return t.expand(shape).reshape(shape[0], -1).to(torch.int32).contiguous()
+
+
+def _check_operand(t: torch.Tensor) -> None:
     if t.dtype != torch.int64:
         raise TypeError(f"limb tensors are int64, got {t.dtype}")
     if not t.is_cuda:
         raise ValueError("all operands of a kernel must lie on the CUDA device")
-    return t.expand(shape).reshape(shape[0], -1).to(torch.int32).contiguous()
+
+
+def lane_strides(shape, strides):
+    """(limb stride, lane stride) such that element i of lane b of a
+    (16, *batch) tensor with these sizes and strides (in elements) lies at
+    i * limb stride + b * lane stride, b the row-major index over the batch
+    axes; None where the batch axes do not fold into one strided axis. A
+    broadcast (stride 0) over every batch axis gives lane stride 0."""
+    lane, extent = None, 1
+    for size, stride in reversed(list(zip(shape[1:], strides[1:]))):
+        if size == 1:
+            continue
+        if lane is None:
+            lane, extent = stride, size
+        elif stride != lane * extent:
+            return None
+        else:
+            extent *= size
+    return strides[0], lane or 0
+
+
+def lane_view(t: torch.Tensor, shape):
+    """An int64 limb operand on the card as a kernel that takes strides
+    reads it: (tensor, limb stride, lane stride) of t broadcast to `shape`.
+    The tensor is t itself where its batch axes fold into one strided axis,
+    else one contiguous int64 copy."""
+    _check_operand(t)
+    if t.shape == shape and t.is_contiguous():
+        return t, math.prod(shape[1:]), 1
+    v = t.expand(shape)
+    st = lane_strides(v.shape, v.stride())
+    if st is None:
+        v = v.contiguous()
+        st = lane_strides(v.shape, v.stride())
+    return v, st[0], st[1]
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -197,22 +244,49 @@ def tree_sum_plain(x, y, z):
 # -- wrappers --------------------------------------------------------------------
 
 
-def pt_add(px, py, pz, qx, qy, qz):
-    """Complete add of two Jacobian points, coordinates (16, *batch) int64
-    (operands broadcast against each other) -> three (16, *batch) int64."""
-    if not px.is_cuda:
-        return pt_add_plain(px, py, pz, qx, qy, qz)
-    shape = torch.broadcast_shapes(px.shape, qx.shape)
-    if shape[0] != 16:
-        raise ValueError(f"limb axis must have 16 entries, got shape {tuple(shape)}")
-    ins = [flat_i32(c, shape) for c in (px, py, pz, qx, qy, qz)]
-    B = ins[0].shape[1]
-    outs = [torch.empty((16, B), dtype=torch.int32, device=px.device) for _ in range(3)]
-    fn = _build.bind("curve", "bppp_pt_add", [_VP] * 9 + [ctypes.c_int, _VP])
-    err = fn(*(t.data_ptr() for t in ins + outs), B, _build.stream())
+# K5a's launch: 4 threads per lane while 4 B stays within this many
+# threads, 2 beyond. One thread per lane (the earlier launch) was slower at every
+# batch swept, up to the table build's 200,704 lanes (PERF.md).
+K5A_SPLIT_THREADS = 32768
+K5A_BLOCK = 128  # threads per block
+
+
+def pt_add_plan(B: int) -> tuple[int, int]:
+    """(threads per lane, lanes per block) of K5a's launch over B lanes:
+    4 while 4 B <= K5A_SPLIT_THREADS, else 2."""
+    T = 4 if 4 * B <= K5A_SPLIT_THREADS else 2
+    return T, K5A_BLOCK // T
+
+
+def pt_add_launch(ins, shape, T: int, lpb: int):
+    """Launch K5a with T threads per lane and lpb lanes per block on six
+    int64 operands broadcast to `shape` -> three (16, *shape[1:]) int64."""
+    views = [lane_view(c, shape) for c in ins]
+    outs = torch.empty((3,) + tuple(shape), dtype=torch.int64, device=ins[0].device).unbind(0)
+    B = math.prod(shape[1:])
+    fn = _build.bind("curve", "bppp_pt_add",
+                     [ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_VP)]
+                     + [ctypes.c_int] * 3 + [_VP])
+    ptrs = (_VP * 6)(*(v[0].data_ptr() for v in views))
+    strides = (ctypes.c_longlong * 12)(*(x for v in views for x in v[1:]))
+    optrs = (_VP * 3)(*(o.data_ptr() for o in outs))
+    err = fn(ptrs, strides, optrs, B, T, lpb, _build.stream())
     LAUNCHES["pt_add"] += 1
     _build.check(err, "pt_add")
-    return tuple(o.to(torch.int64).reshape(shape) for o in outs)
+    return tuple(outs)
+
+
+def pt_add(px, py, pz, qx, qy, qz):
+    """Complete add of two Jacobian points, coordinates (16, *batch) int64
+    (operands broadcast against each other) -> three (16, *batch) int64.
+    One launch: the kernel reads the operands where they lie."""
+    if not px.is_cuda:
+        return pt_add_plain(px, py, pz, qx, qy, qz)
+    shapes = (px.shape, py.shape, pz.shape, qx.shape, qy.shape, qz.shape)
+    shape = px.shape if shapes.count(px.shape) == 6 else torch.broadcast_shapes(*shapes)
+    if shape[0] != 16:
+        raise ValueError(f"limb axis must have 16 entries, got shape {tuple(shape)}")
+    return pt_add_launch((px, py, pz, qx, qy, qz), shape, *pt_add_plan(math.prod(shape[1:])))
 
 
 def _double_chain_launch(X, Y, Z, n: int):

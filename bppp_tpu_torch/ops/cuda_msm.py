@@ -8,15 +8,22 @@ ladder and tree are in `ops/cuda_ladder.py`). `curve.msm` picks one of the
 three small MSMs per call by the reference's switches
 (`curve.small_msm_variant`). Wrappers take and return int64
 limb tensors in the interchange layout. On a CUDA tensor a wrapper
-narrows to int32 storage, launches its kernel on the current stream and
-widens the result, without synchronising; on a CPU tensor — and only
-there — it runs the plain PyTorch version below.
+launches its kernel on the current stream without synchronising (the
+small MSMs' wrappers narrow to int32 storage first and widen the result);
+on a CPU tensor — and only there — it runs the plain PyTorch version
+below.
 
 K2 `pow_const` — replaces `pallas_msm._pow_kernel`. x^e for a host-static
-exponent: `fp_inv`, `fp_sqrt`, `fn_inv`. Bound on an H100: operations
-(14 + 5 * 64 modular multiplies per lane, 128 bytes moved). One launch
-holds the whole ladder, the table lives in the thread's local memory and
-is indexed directly, and the modulus is fixed at compile time.
+exponent: `fp_inv`, `fp_sqrt`, `fn_inv`. The exponent becomes a step list
+on the host, once per exponent (`field.pow_chain`: libsecp256k1's addition
+chains for p - 2 and (p+1)/4, a chain over n's leading ones and a sliding
+window for n - 2, a sliding window of width 4 for any other e), which
+one launch interprets: squares through the dedicated square, the list's
+slots in the thread's local memory. Bound on an H100: operations (253-256
+squares and 13-41 multiplies per lane for the three named exponents, 256
+bytes moved). Unlike the other wrappers here it reads and writes the
+int64 limbs as they lie (a limb and a lane stride, `cuda_curve.lane_view`):
+no narrowing or widening pass, one launch per call.
 
 K4 `msm_small_wnaf` — replaces `pallas_msm._msm_small_wnaf_kernel`.
 sum_i [s_i] P_i over D <= 5 per-proof points, scalars arriving as GLV
@@ -68,6 +75,7 @@ incomplete and they agree with their plain versions as points.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -87,18 +95,25 @@ DMAX = 5  # K4, tables [1..8] P_i: D * 768 bytes
 DMAX_U4 = 3  # K8 and K9, 16-entry tables: D * 1440 or 1536 bytes
 
 
-def _pow_digits(e: int) -> list[int]:
-    """MSB-first 4-bit digits of e."""
-    ndig = max(1, (e.bit_length() + 3) // 4)
-    return [(e >> (4 * (ndig - 1 - i))) & 15 for i in range(ndig)]
-
-
 # -- K2 --------------------------------------------------------------------------
 
 
 def pow_const_plain(x, e: int, kind: str):
     PLAIN_CALLS["pow_const"] += 1
     return f._pow_const(x, e, f.fp_mul if kind == "p" else f.fn_mul)
+
+
+_POW_STEPS: dict = {}
+
+
+def _packed_steps(chain):
+    """The step list as the kernel takes it: one word per step, dst | src
+    << 8 | mul << 16 | nsqr << 24, mul 0xFF for none."""
+    words = _POW_STEPS.get(chain)
+    if words is None:
+        packed = [d | (s << 8) | ((m & 0xFF) << 16) | (n << 24) for d, s, n, m in chain.steps]
+        words = _POW_STEPS[chain] = (ctypes.c_uint32 * max(1, len(packed)))(*packed)
+    return words
 
 
 def pow_const(x, e: int, kind: str):
@@ -113,20 +128,20 @@ def pow_const(x, e: int, kind: str):
     shape = x.shape
     if shape[0] != 16:
         raise ValueError(f"limb axis must have 16 entries, got shape {tuple(shape)}")
-    xin = flat_i32(x, shape)
-    B = xin.shape[1]
-    out = torch.empty((16, B), dtype=torch.int32, device=x.device)
-    digits = _pow_digits(e)
-    buf = (ctypes.c_uint8 * len(digits))(*digits)
+    chain = f.pow_chain(e)
+    xin, limb_stride, lane_stride = cuda_curve.lane_view(x, shape)
+    out = torch.empty(shape, dtype=torch.int64, device=x.device)
     fn = _build.bind(
         "pow", "bppp_pow_const",
-        [_VP, _VP, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int, _VP],
+        [_VP, ctypes.c_longlong, ctypes.c_longlong, _VP, ctypes.c_int,
+         ctypes.POINTER(ctypes.c_uint32)] + [ctypes.c_int] * 4 + [_VP],
     )
-    err = fn(xin.data_ptr(), out.data_ptr(), B, buf, len(digits), int(kind == "p"),
-             _build.stream())
+    err = fn(xin.data_ptr(), limb_stride, lane_stride, out.data_ptr(), math.prod(shape[1:]),
+             _packed_steps(chain), len(chain.steps), chain.result, chain.slots,
+             int(kind == "p"), _build.stream())
     LAUNCHES["pow_const"] += 1
     _build.check(err, "pow_const")
-    return out.to(torch.int64).reshape(shape)
+    return out
 
 
 # -- K4 --------------------------------------------------------------------------

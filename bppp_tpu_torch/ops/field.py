@@ -21,12 +21,16 @@ Everything a public function returns is fully reduced with limbs < 2^16,
 so equality with the JAX package is limb for limb. All public functions
 broadcast over trailing batch shapes; axis 0 is the limb axis.
 
-`fp_inv`, `fp_sqrt` and `fn_inv` are one fixed-window exponentiation
-each: on a CUDA tensor the whole ladder is one kernel launch
-(`ops/cuda_msm.pow_const`), on a CPU tensor the plain `_pow_const` loop.
+`fp_inv`, `fp_sqrt` and `fn_inv` are one exponentiation each, run as a
+step list (`pow_chain`: an addition chain for the three exponents, a
+sliding window for any other): on a CUDA tensor the whole list is one
+kernel launch (`ops/cuda_msm.pow_const`), on a CPU tensor the plain
+`_pow_const` runs the same list.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -361,25 +365,196 @@ def _cond_sub(v, m_limbs: np.ndarray):
 # -- shared helpers ------------------------------------------------------------
 
 
-def _pow_const(x, e: int, mul):
-    """x^e for a host-static exponent: table x^0..x^15, then an MSB-first
-    walk of e's 4-bit digits (4 squarings + one table multiply each). The
-    digits are host ints, so the table is indexed directly."""
-    assert e > 0
-    ndig = max(1, (e.bit_length() + 3) // 4)
-    one = torch.zeros_like(x)
-    one[0] = 1
-    tab = [one, x]
-    for _ in range(14):
-        tab.append(mul(tab[-1], x))
-    acc = one
-    for i in range(ndig):
-        d = (e >> (4 * (ndig - 1 - i))) & 15
-        if i:
-            for _ in range(4):
-                acc = mul(acc, acc)
-        acc = mul(acc, tab[d])
+class PowChain(NamedTuple):
+    """x^e as a step list over numbered slots of field elements. Slot 0
+    holds x; step (dst, src, nsqr, mul) sets slot dst to slot src squared
+    nsqr times, times slot mul (mul == -1: no multiply); after the last
+    step slot `result` holds x^e."""
+
+    steps: tuple
+    result: int
+    slots: int
+    squares: int
+    multiplies: int
+
+
+# what the exponentiation kernel takes (csrc/pow.cu)
+POW_MAX_STEPS = 80
+POW_MAX_SLOTS = 10
+
+
+class _ChainBuilder:
+    def __init__(self):
+        self.steps = []
+        self.slots = 1  # slot 0 holds x
+        self.free = []
+
+    def new(self) -> int:
+        if self.free:
+            return self.free.pop()
+        self.slots += 1
+        return self.slots - 1
+
+    def step(self, dst: int, src: int, nsqr: int, mul: int = -1) -> int:
+        self.steps.append((dst, src, nsqr, mul))
+        return dst
+
+    def chain(self, result: int) -> PowChain:
+        return PowChain(tuple(self.steps), result, self.slots,
+                        sum(s[2] for s in self.steps), sum(s[3] >= 0 for s in self.steps))
+
+
+def _windows(e: int, w: int) -> list:
+    """MSB-first sliding windows of e: [(v, lo)], v odd and below 2^w, lo
+    the position of v's lowest bit."""
+    out, i = [], e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            i -= 1
+            continue
+        lo = max(i - w + 1, 0)
+        while not (e >> lo) & 1:
+            lo += 1
+        out.append(((e >> lo) & ((1 << (i - lo + 1)) - 1), lo))
+        i = lo - 1
+    return out
+
+
+def _odd_powers(b: _ChainBuilder, top: int, table: dict):
+    """Fill `table` (v -> slot of x^v; x^1 in slot 0) with every odd power
+    up to `top`, each x^2 times the one before. -> the slot of x^2 (free
+    for reuse once the table is built), or None if none was needed."""
+    table.setdefault(1, 0)
+    if all(v in table for v in range(1, top + 1, 2)):
+        return None
+    sq = b.step(b.new(), 0, 1)
+    for v in range(3, top + 1, 2):
+        if v not in table:
+            table[v] = b.step(b.new(), table[v - 2], 0, sq)
+    return sq
+
+
+def _slide(b: _ChainBuilder, acc, e: int, nbits: int, table: dict, w: int, dst: int) -> int:
+    """Steps that take slot acc = x^a (acc None: a = 0) to x^(a 2^nbits +
+    e), e < 2^nbits, window by window, written to slot dst. -> the slot
+    of the result (a table slot if e is one window at bit 0 and a = 0)."""
+    pos = nbits
+    for v, lo in _windows(e, w):
+        acc = table[v] if acc is None else b.step(dst, acc, pos - lo, table[v])
+        pos = lo
+    if pos:
+        acc = b.step(dst, acc, pos)
     return acc
+
+
+def _window_chain(e: int, w: int) -> PowChain:
+    """x^e by a sliding window of width w over all of e's bits."""
+    b = _ChainBuilder()
+    table = {}
+    sq = _odd_powers(b, max(v for v, _ in _windows(e, w)), table)
+    return b.chain(_slide(b, None, e, e.bit_length(), table, w, b.new() if sq is None else sq))
+
+
+def _ones_blocks(b: _ChainBuilder) -> dict:
+    """x2, x3 = x^(2^2 - 1), x^(2^3 - 1), the first blocks of every named
+    chain below. -> {k: slot of x^(2^k - 1)}."""
+    x2 = b.step(b.new(), 0, 1, 0)
+    return {1: 0, 2: x2, 3: b.step(b.new(), x2, 1, 0)}
+
+
+def _fp_chain(e: int) -> PowChain:
+    """x^((p+1)/4) or x^(p-2): p's 223 leading ones as blocks
+    x_k = x^(2^k - 1) (k = 2, 3, 6, 9, 11, 22, 44, 88, 176, 220, 223),
+    then the low 33 bits as tails, libsecp256k1's chains (253 squares + 13
+    multiplies for the square root, 255 + 15 for the inverse)."""
+    b = _ChainBuilder()
+    x = _ones_blocks(b)
+    t = b.step(b.new(), x[3], 3, x[3])  # x6
+    t = b.step(t, t, 3, x[3])  # x9
+    t = b.step(t, t, 2, x[2])  # x11
+    x22 = b.step(t, t, 11, t)
+    x44 = b.step(b.new(), x22, 22, x22)
+    t = b.step(b.new(), x44, 44, x44)  # x88
+    t = b.step(t, t, 88, t)  # x176
+    t = b.step(t, t, 44, x44)  # x220
+    t = b.step(t, t, 3, x[3])  # x223
+    t = b.step(t, t, 23, x22)
+    tails = ((6, x[2]), (2, -1)) if e == (P_INT + 1) // 4 else ((5, 0), (3, x[2]), (2, 0))
+    for nsqr, mul in tails:
+        t = b.step(t, t, nsqr, mul)
+    return b.chain(t)
+
+
+def _fn_inv_chain() -> PowChain:
+    """x^(n-2): n's 127 leading ones as blocks x_k (k = 2, 3, 6, 8, 14,
+    28, 56, 112, 126, 127), then a sliding window of width 4 over the low
+    129 bits, its odd powers x^3 = x2 and x^7 = x3 taken from the blocks
+    (256 squares + 41 multiplies)."""
+    b = _ChainBuilder()
+    x = _ones_blocks(b)
+    x6 = b.step(b.new(), x[3], 3, x[3])
+    x8 = b.step(b.new(), x6, 2, x[2])
+    x14 = b.step(x6, x8, 6, x6)
+    t = b.step(x8, x14, 14, x14)  # x28
+    t = b.step(t, t, 28, t)  # x56
+    t = b.step(t, t, 56, t)  # x112
+    t = b.step(t, t, 14, x14)  # x126
+    t = b.step(t, t, 1, 0)  # x127
+    b.free.append(x14)
+    low = (N_INT - 2) & ((1 << 129) - 1)
+    table = {3: x[2], 7: x[3]}
+    _odd_powers(b, max(v for v, _ in _windows(low, 4)), table)
+    return b.chain(_slide(b, t, low, 129, table, 4, t))
+
+
+def chain_exponent(chain: PowChain) -> int:
+    """The exponent a step list computes, in integer arithmetic; raises
+    if a step reads a slot that no step wrote."""
+    exps = {0: 1}
+    for dst, src, nsqr, mul in chain.steps:
+        exps[dst] = (exps[src] << nsqr) + (exps[mul] if mul >= 0 else 0)
+    return exps[chain.result]
+
+
+_CHAINS: dict = {}
+
+
+def pow_chain(e: int) -> PowChain:
+    """The step list of x^e, 0 < e < 2^256, built once per exponent: the
+    named chains for p - 2, (p+1)/4 and n - 2, else a sliding window of
+    width 4 (its 8 odd powers and x^2 fit the kernel's slots). Checked in
+    integer arithmetic: a list that does not compute e raises."""
+    ch = _CHAINS.get(e)
+    if ch is not None:
+        return ch
+    if not 0 < e < (1 << 256):
+        raise ValueError("exponent out of range")
+    if e in (P_INT - 2, (P_INT + 1) // 4):
+        ch = _fp_chain(e)
+    elif e == N_INT - 2:
+        ch = _fn_inv_chain()
+    else:
+        ch = _window_chain(e, 4)
+    if chain_exponent(ch) != e:
+        raise ValueError(f"the step list of exponent {e:#x} computes another exponent")
+    if len(ch.steps) > POW_MAX_STEPS or ch.slots > POW_MAX_SLOTS:
+        raise ValueError(f"the step list of exponent {e:#x} has {len(ch.steps)} steps over "
+                         f"{ch.slots} slots: at most {POW_MAX_STEPS} over {POW_MAX_SLOTS}")
+    _CHAINS[e] = ch
+    return ch
+
+
+def _pow_const(x, e: int, mul):
+    """x^e for a host-static exponent: `pow_chain(e)`'s steps, each square
+    a `mul(a, a)`."""
+    ch = pow_chain(e)
+    slots = [x] + [None] * (ch.slots - 1)
+    for dst, src, nsqr, m in ch.steps:
+        a = slots[src]
+        for _ in range(nsqr):
+            a = mul(a, a)
+        slots[dst] = a if m < 0 else mul(a, slots[m])
+    return slots[ch.result].clone() if ch.result == 0 else slots[ch.result]
 
 
 def select(mask, a, b):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""The kernels of this checkout that the port has redesigned — K3
-(`fixed_msm`), K4 (`msm_small_wnaf`), K5b (`pt_double`, the table build's
-doubling chain), K6 (`scalar_mul`), K8 (`msm_small_glv`) and K9
-(`msm_small`), and the table build's affine step (`affine_rows`) — against
-those of an earlier checkout of the repo, in turns inside one run.
+"""The kernels of this checkout that the port has redesigned — K2
+(`pow_const`), K3 (`fixed_msm`), K4 (`msm_small_wnaf`), K5a (`pt_add`),
+K5b (`pt_double`, the table build's doubling chain), K6 (`scalar_mul`), K8
+(`msm_small_glv`) and K9 (`msm_small`), and the table build's affine step
+(`affine_rows`) — against those of an earlier checkout of the repo, in
+turns inside one run.
 
     git archive <earlier commit> | tar -x -C <a git-ignored directory>
     python3 bppp_tpu_torch/tools/compare_designs.py --earlier <that directory>
@@ -31,7 +32,13 @@ any earlier tree with the same entry points will do):
     tables' rows (`cuda_curve.affine_rows`, one launch; a tree without it
     runs the reference's `to_affine`, a K2 inversion of every entry); and
     the seconds of a whole `build_tables` over 49 and 129 generators (the
-    u64 and WNLA-64 tables). Inputs come from one seed,
+    u64 and WNLA-64 tables); `cuda_msm.pow_const` for the three exponents
+    of the paths (p - 2, (p+1)/4, n - 2) at 1024 and 14,336 lanes; and
+    `cuda_curve.pt_add` at 1024 lanes on whole operands, on one point
+    broadcast over the lanes and on [:, j] slices of (16, 3, 1024) stacks,
+    and at the table build's first and last add (window entries plus a
+    strided slice of the doubles broadcast over them: 1,568 and 200,704
+    lanes). Inputs come from one seed,
     so both trees get the same ones; each result is hashed as compressed
     points (a table by its words);
   * in this tree's processes, sweeps the kernels' launches through their C
@@ -42,7 +49,11 @@ any earlier tree with the same entry points will do):
     threads per lane at 32, 64 and 128 threads per block) and lane walk
     (one thread per lane) at 1024-132,096 lanes, each checked against the
     wrapper's result; where K6's two launches come close (12,288 and
-    16,384 lanes) it times them in turns over several rounds.
+    16,384 lanes) it times them in turns over several rounds; and K5a at
+    2 and 4 threads per lane (128 threads per block) at 1024-200,704
+    lanes, each launch's device time too (torch.profiler: the wrapper's
+    time is mostly the host's there), behind the plan's
+    `K5A_SPLIT_THREADS`.
 
 The script prints one JSON line: per row each tree's ms (the mean of its
 two processes, CUDA events, median of 5 each) and whether all four
@@ -83,6 +94,12 @@ K6_CLOSE_LANES = (12288, 16384)
 K6_CLOSE_ROUNDS = 6
 # the table build's affine step: 32 windows of 2^8 entries of 49 and 129 generators
 AFFINE_SHAPES = ((32 * 49, 256), (32 * 129, 256))
+# K2: the exponents of fp_inv, fp_sqrt and fn_inv, at the lanes the paths give
+POW_LANES = (1024, 14336)
+# K5a's sweep: lanes, and threads per lane at 128 threads per block
+ADD_SWEEP_LANES = (1024, 4096, 8192, 16384, 32768, 65536, 131072, 200704)
+ADD_THREADS = (2, 4)
+ADD_TABLE_BITS = (0, 7)  # the table build's adds timed: entries [0, 2^k) + [2^k] G per window
 
 
 def load_chip_smoke(tree: str):
@@ -244,6 +261,48 @@ def affine_inputs(cs, gen, M, NE, dev):
     return cs.dc.pt_select(first, cs.dc.identity((M, NE), device=dev), p)
 
 
+def add_inputs(cs, gen, dev) -> list:
+    """[(tag, p, q)] of K5a's rows: whole operands at 1024 lanes (lane 0 a
+    doubling), one point broadcast over them, [:, j] slices of (16, 3,
+    1024) stacks, and the table build's first and last adds: entries (16,
+    32, 49, 2^k) plus a k::8 slice of the 256 doubles of 49 generators
+    broadcast over the entries' last axis."""
+    B = cs.BATCH
+    p, q = cs.rand_points(gen, (B,), dev), cs.rand_points(gen, (B,), dev)
+    q = cs.dc.pt_select(torch.arange(B, device=dev) == 0, p, q)
+    one = cs.dc.PointJ(*(c[:, :1] for c in cs.rand_points(gen, (1,), dev)))
+    ps, qs = cs.rand_points(gen, (3, B), dev), cs.rand_points(gen, (3, B), dev)
+    out = [(f"B={B}", p, q), (f"broadcast B={B}", p, one),
+           (f"strided B={B}", cs.dc.PointJ(*(c[:, 1] for c in ps)),
+            cs.dc.PointJ(*(c[:, 1] for c in qs)))]
+    dbl = cs.rand_points(gen, (256, 49), dev)
+    for k in ADD_TABLE_BITS:
+        ents = cs.rand_points(gen, (32, 49, 1 << k), dev)
+        step = cs.dc.PointJ(*(d[:, k::8, :, None] for d in dbl))
+        out.append((f"table build k={k} B={32 * 49 << k}", ents, step))
+    return out
+
+
+def add_sweep(cs, gen, dev) -> list:
+    """K5a through its C entry point at each threads-per-lane count,
+    checked against the wrapper."""
+    out = []
+    for B in ADD_SWEEP_LANES:
+        p, q = cs.rand_points(gen, (B,), dev), cs.rand_points(gen, (B,), dev)
+        ins = (*p, *q)
+        want = limb_digest(cs.cuda_curve.pt_add(*ins))
+        for T in ADD_THREADS:
+            lpb = 128 // T
+
+            def launch():
+                return cs.cuda_curve.pt_add_launch(ins, p.x.shape, T, lpb)
+
+            out.append(dict(kernel="pt_add", B=B, threads_per_lane=T, lanes_per_block=lpb,
+                            agree=limb_digest(launch()) == want, ms=cs.time_ms(launch),
+                            device_ms=cs.device_ms(launch, f"pt_add_kernel<{T}>")))
+    return out
+
+
 def limb_digest(ts) -> str:
     return hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in ts)).hexdigest()
 
@@ -278,7 +337,7 @@ def k6_inputs(cs, gen, B, dev):
 
 
 def sweep(cs, dev, gen, full) -> list:
-    out = []
+    out = add_sweep(cs, gen, dev)
     for B, cands in K3_SWEEP.items():
         sc = cs.rand_scalars(gen, (full.n_points, B), cs.N_INT, dev)
         want = digest(cs, cs.cuda_fixed_base.fixed_msm(full, sc))
@@ -370,6 +429,17 @@ def worker(tree: str, with_sweep: bool) -> dict:
                          digest=limb_digest(affine_step(cs, p)),
                          ms=cs.time_ms(lambda: affine_step(cs, p))))
         del p
+    for B in POW_LANES:
+        for tag, e, kind in cs.POW_NAMED:
+            x = cs.rand_scalars(gen, (B,), cs.P_INT if kind == "p" else cs.N_INT, dev)
+            rows.append(dict(kernel="pow_const", row=f"{tag} B={B}", shape=[16, B],
+                             digest=limb_digest([cs.cuda_msm.pow_const(x, e, kind)]),
+                             ms=cs.time_ms(lambda: cs.cuda_msm.pow_const(x, e, kind))))
+    for tag, p, q in add_inputs(cs, gen, dev):
+        rows.append(dict(kernel="pt_add", row=tag, shape=list(p.x.shape),
+                         digest=limb_digest(cs.cuda_curve.pt_add(*p, *q)),
+                         ms=cs.time_ms(lambda: cs.cuda_curve.pt_add(*p, *q))))
+        del p, q
     for F in CHAIN_LANES:
         seconds, words = table_build_seconds(cs, cs.rand_points(gen, (F,), dev))
         rows.append(dict(kernel="build_tables", row=f"F={F}", shape=[F], digest=words,

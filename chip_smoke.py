@@ -42,13 +42,17 @@ work: bytes moved (each input read once, each output written once) over
 H100 SXM data sheet gives 67 TFLOP/s for fp32 outside the tensor cores,
 and the SM has half as many int32 lanes as fp32 lanes; a multiply-add
 counts as two operations. Work that depends on the data (zero digits add
-nothing) is counted from this run's inputs.
+nothing) is counted from this run's inputs. K2's and K5a's rows also give
+the kernel's own device time per launch (`device_ms`, torch.profiler)
+beside the wrapper's time by CUDA events (`kernel_ms`), which includes the
+host's work of the call.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -193,6 +197,37 @@ def timed_once(fn):
     return out, a.elapsed_time(b)
 
 
+def device_rows(prof):
+    """[(kernel symbol, device ms, launches)] of what a torch.profiler run
+    saw on the card."""
+    rows = []
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        rows.append((e.key, float(us) / 1e3, int(e.count)))
+    return rows
+
+
+def device_ms(fn, kernel: str, reps: int = 10):
+    """Mean device time in milliseconds of one launch of `kernel` (part of
+    its symbol) over `reps` calls of `fn`, by torch.profiler; None if the
+    profiler saw no such launch (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [r for r in device_rows(prof) if kernel in r[0]]
+    count = sum(r[2] for r in mine)
+    return sum(r[1] for r in mine) / count if count else None
+
+
 def bound(nbytes: float, ops: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT32_OPS_PER_S * 1e3
@@ -274,56 +309,96 @@ def check_keccak(gen, dev, B):
                 bound_ms=b_ms, bound_by=by, shape=[200, B], compared="bytes")
 
 
-def check_pow(gen, dev, B):
+# K2's exponents: the three the paths use, and one with no named chain per
+# field (a fixed 256-bit number), run through the sliding window
+POW_NAMED = (("fp_inv", P_INT - 2, "p"), ("fp_sqrt", (P_INT + 1) // 4, "p"),
+             ("fn_inv", N_INT - 2, "n"))
+POW_OTHER = tuple(
+    (f"{kind} e=other", int.from_bytes(hashlib.sha256(f"chip smoke {kind}".encode()).digest(),
+                                       "big") | (1 << 255), kind)
+    for kind in ("p", "n"))
+POW_NON_RESIDUE = 3  # no square root mod p: fp_sqrt gives some other value
+
+
+def check_pow(gen, dev, B, exps=POW_NAMED):
+    """K2 on B lanes for each exponent of `exps`, against the plain version
+    on limbs. Lanes 0..3 hold 0, 1, m - 1 and 3 (a non-residue mod p). Each
+    row gives the step list's squares and multiplies, which its bound counts."""
     out = []
-    for tag, e, kind, mod in (
-        ("fp_inv", P_INT - 2, "p", P_INT),
-        ("fp_sqrt", (P_INT + 1) // 4, "p", P_INT),
-        ("fn_inv", N_INT - 2, "n", N_INT),
-    ):
+    for tag, e, kind in exps:
+        mod = P_INT if kind == "p" else N_INT
         x = rand_scalars(gen, (B,), mod, dev)
-        x[:, 0] = 0  # 0 -> 0
-        x[:, 1] = 0
-        x[0, 1] = 1
+        x[:, :4] = torch.from_numpy(f.ints_to_limbs([0, 1, mod - 1, POW_NON_RESIDUE])).to(dev)
         got = cuda_msm.pow_const(x, e, kind)
         lanes = plain_lanes(B, dev)
         xs = x[:, lanes].contiguous()
         want, plain_ms = timed_once(lambda: cuda_msm.pow_const_plain(xs, e, kind))
         err = max_err(got[:, lanes], want)
         assert int(got[:, 0].abs().sum()) == 0, "pow(0) must be 0"
+        # the plain version runs the kernel's step list: hold both against
+        # an answer that does not come from it
+        assert f.limbs_to_ints(want.cpu()) == [pow(v, e, mod) for v in f.limbs_to_ints(xs.cpu())], \
+            f"pow_const[{tag}]: the plain version is not x^e"
         ms = time_ms(lambda: cuda_msm.pow_const(x, e, kind))
-        digits = cuda_msm._pow_digits(e)
-        sqrs, muls = 4 * (len(digits) - 1), 14 + len(digits) - 1
-        mad = (MAD_MUL_P * muls + MAD_SQR_P * sqrs) if kind == "p" else \
-            (MAD_MUL_N * muls + MAD_SQR_N * sqrs)
-        b_ms, by = bound(2 * 16 * 4 * B, 2 * mad * B)
-        out.append(dict(name=f"pow_const[{tag}]", err=err, ms=ms, plain_ms=plain_ms,
+        dev_ms = device_ms(lambda: cuda_msm.pow_const(x, e, kind), "pow_kernel")
+        chain = f.pow_chain(e)
+        mad = (MAD_MUL_P * chain.multiplies + MAD_SQR_P * chain.squares) if kind == "p" else \
+            (MAD_MUL_N * chain.multiplies + MAD_SQR_N * chain.squares)
+        b_ms, by = bound(2 * 16 * 8 * B, 2 * mad * B)
+        out.append(dict(name=f"pow_const[{tag} B={B}]", err=err, ms=ms, plain_ms=plain_ms,
                         plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[16, B],
-                        compared="limbs"))
+                        compared="limbs", device_ms=dev_ms, plan=dict(squares=chain.squares,
+                                                    multiplies=chain.multiplies,
+                                                    steps=len(chain.steps), slots=chain.slots)))
     return out
 
 
-def check_curve(gen, dev, B):
+def add_bytes(ops, outs=3) -> int:
+    """Bytes K5a moves: each operand's distinct int64 limbs read once (a
+    broadcast operand's one lane once), the outputs written once."""
+    return 8 * (sum(c.numel() for c in ops) + outs * 16 * int(np.prod(
+        torch.broadcast_shapes(*(c.shape for c in ops))[1:])))
+
+
+def check_add(name, p, q, plain_reps=3):
+    """One K5a row: the wrapper on p + q (any broadcast or strided view)
+    against the plain version on limbs, with the plan of its launch. The
+    plain version is timed over `plain_reps` calls (one: its checking call)."""
+    got = cuda_curve.pt_add(*p, *q)
+    want, plain_ms = timed_once(lambda: cuda_curve.pt_add_plain(*p, *q))
+    err = max_err(got, want)
+    ms = time_ms(lambda: cuda_curve.pt_add(*p, *q))
+    dev_ms = device_ms(lambda: cuda_curve.pt_add(*p, *q), "pt_add_kernel")
+    if plain_reps > 1:
+        plain_ms = time_ms(lambda: cuda_curve.pt_add_plain(*p, *q), reps=plain_reps)
+    live = int((~(dc.pt_is_identity(p) | dc.pt_is_identity(q))).sum())
+    B = got[0][0].numel()
+    b_ms, by = bound(add_bytes(list(p) + list(q)), 2 * MAD_ADD * live)
+    T, lpb = cuda_curve.pt_add_plan(B)
+    return dict(name=name, err=err, ms=ms, plain_ms=plain_ms, plain_B=B, bound_ms=b_ms,
+                bound_by=by, shape=list(got[0].shape), compared="limbs", device_ms=dev_ms,
+                plan=dict(threads_per_lane=T, lanes_per_block=lpb))
+
+
+def special_points(gen, dev, B):
+    """(p, q), random points on B lanes but for lanes 0..4: a doubling
+    collision, an inverse collision, p the identity, q the identity, both."""
     p = rand_points(gen, (B,), dev)
     q = rand_points(gen, (B,), dev)
     idl = dc.identity((B,), device=dev)
     lane = torch.arange(B, device=dev)
-    # lanes 0..3: doubling collision, inverse collision, p identity, q identity
     q = dc.pt_select(lane == 0, p, q)
     q = dc.pt_select(lane == 1, dc.pt_neg(p), q)
     p = dc.pt_select(lane == 2, idl, p)
     q = dc.pt_select(lane == 3, idl, q)
     p = dc.pt_select(lane == 4, idl, p)
     q = dc.pt_select(lane == 4, idl, q)
-    got = cuda_curve.pt_add(*p, *q)
-    want = cuda_curve.pt_add_plain(*p, *q)
-    err = max_err(got, want)
-    ms = time_ms(lambda: cuda_curve.pt_add(*p, *q))
-    plain_ms = time_ms(lambda: cuda_curve.pt_add_plain(*p, *q), reps=3)
-    live = int((~(dc.pt_is_identity(p) | dc.pt_is_identity(q))).sum())
-    b_ms, by = bound(9 * 16 * 4 * B, 2 * MAD_ADD * live)
-    add = dict(name="pt_add", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
-               bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+    return p, q
+
+
+def check_curve(gen, dev, B):
+    p, q = special_points(gen, dev, B)
+    add = check_add("pt_add", p, q)
     got = cuda_curve.pt_double(*p)
     want = cuda_curve.pt_double_plain(*p)
     err = max_err(got, want)
@@ -333,6 +408,23 @@ def check_curve(gen, dev, B):
     dbl = dict(name="pt_double", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
                bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
     return [add, dbl]
+
+
+def check_add_views(gen, dev, B, L=3):
+    """K5a on operands the kernel reads in place: one point broadcast over
+    B lanes (lane stride 0; lane 0 of p is that point, a doubling), and p
+    and q as [:, j] slices of (16, L, B) stacks (limb stride L B)."""
+    p = rand_points(gen, (B,), dev)
+    one = dc.PointJ(*(c[:, :1] for c in rand_points(gen, (1,), dev)))
+    p = dc.pt_select(torch.arange(B, device=dev) == 0, dc.PointJ(*(c.expand(16, B) for c in one)), p)
+    rows = [check_add(f"pt_add[broadcast B={B}]", p, one)]
+    ps, qs = rand_points(gen, (L, B), dev), rand_points(gen, (L, B), dev)
+    j = L // 2
+    pj = dc.PointJ(*(c[:, j] for c in ps))
+    qj = dc.PointJ(*(c[:, j] for c in qs))
+    assert not pj.x.is_contiguous() and cuda_curve.lane_strides(pj.x.shape, pj.x.stride()) == (L * B, 1)
+    rows.append(check_add(f"pt_add[strided L={L} B={B}]", pj, qj))
+    return rows
 
 
 # the table build's chain: every double of a generator for window width 8,
@@ -588,26 +680,32 @@ def round0_r_positions():
         + tuple(1 + lh + 2 * j + 1 for j in range(lg // 2))
 
 
-# -- what the paths give K3, K6 and K7 ------------------------------------------------
+# -- what the paths give K3, K5a, K6 and K7 -------------------------------------------
 
 # the shapes the kernels phase holds K6 and K7 at with or without a record:
 # the u64 mirror verifier's P_t ladder (17 points) and first generator fold
 # (32), and its sum over 17 points
 SCALAR_MUL_LANES = (17 * BATCH, 32 * BATCH)
 TREE_SUM_L = (17,)
+# and K5a at the u64 table build's last add (32 windows x 49 generators x
+# 128 entries), under the launch with 2 threads per lane
+ADD_LANES = (32 * 49 * 128,)
 
 
 def new_shape_log() -> dict:
-    return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}, "table_builds": []}
+    return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}, "pt_add": set(),
+            "table_builds": []}
 
 
 @contextlib.contextmanager
 def recording_shapes(log: dict, where: str):
-    """For the block, note what each launch of K3, K6 and K7 is given, so
-    the kernels phase holds each of them at every shape a path gave it:
-    K6's lane count, K7's point count L, and every table or row subset K3
-    walked (by identity, with the phase `where` it was first met in)."""
-    orig = cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm
+    """For the block, note what each launch of K3, K5a, K6 and K7 is given,
+    so the kernels phase holds each of them at every shape a path gave it:
+    K5a's and K6's lane counts, K7's point count L, and every table or row
+    subset K3 walked (by identity, with the phase `where` it was first met
+    in)."""
+    orig = (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
+            cuda_curve.pt_add)
 
     def scalar_mul(px, py, pz, k):
         log["scalar_mul"].add(torch.broadcast_shapes(px.shape, k.shape)[1:].numel())
@@ -621,12 +719,17 @@ def recording_shapes(log: dict, where: str):
         log["fixed_msm"].setdefault(id(tab), (tab, where))
         return orig[2](tab, scalars)
 
-    cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm = \
-        scalar_mul, tree_sum, fixed_msm
+    def pt_add(*ops):
+        log["pt_add"].add(torch.broadcast_shapes(*(c.shape for c in ops))[1:].numel())
+        return orig[3](*ops)
+
+    (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
+     cuda_curve.pt_add) = scalar_mul, tree_sum, fixed_msm, pt_add
     try:
         yield log
     finally:
-        cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm = orig
+        (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
+         cuda_curve.pt_add) = orig
 
 
 def shape_plan(log, known_tables=()):
@@ -638,6 +741,13 @@ def shape_plan(log, known_tables=()):
     return (sorted(set(SCALAR_MUL_LANES) | log["scalar_mul"]),
             sorted(set(TREE_SUM_L) | log["tree_sum"]),
             [tw for key, tw in log["fixed_msm"].items() if key not in known])
+
+
+def add_lanes_plan(log):
+    """The lane counts the kernels phase holds K5a at beside its 1024-lane
+    rows: ADD_LANES and every count in `log` (the paths' adds and the
+    table builds', up to 528,384 lanes for WNLA-64's 129 generators)."""
+    return sorted((set(ADD_LANES) | (log or new_shape_log())["pt_add"]) - {BATCH})
 
 
 def table_build_plan(log):
@@ -654,7 +764,7 @@ def table_build_plan(log):
 def phase_kernels(dev, tables, launches=None, shapes=None):
     """Every kernel against its plain version on the card. `launches`: the
     main path's counts, reported beside each kernel when given; `shapes`:
-    the log of `recording_shapes` over the paths, whose K3, K6 and K7
+    the log of `recording_shapes` over the paths, whose K3, K5a, K6 and K7
     shapes get rows too, with the fixtures' table builds, whose K5b chain
     and affine_rows shapes get rows too."""
     gen = np.random.default_rng(2024)
@@ -663,8 +773,11 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     # the main path's shapes at a batch of 1024, and a ragged batch that is
     # no multiple of the block size
     rows.append(check_keccak(gen, dev, BATCH))
-    rows += check_pow(gen, dev, 14 * BATCH)
+    for B in (14 * BATCH, BATCH):
+        rows += check_pow(gen, dev, B)
+    rows += check_pow(gen, dev, BATCH, POW_OTHER)
     rows += check_curve(gen, dev, BATCH)
+    rows += check_add_views(gen, dev, BATCH)
     rows.append(check_fixed(gen, dev, BATCH, tables["full"], "F=49"))
     rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
     r_rows = tables["full"].subset(round0_r_positions())
@@ -712,8 +825,13 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     rows += check_scalar_mul(gen, dev, k6_lanes)
     for L in k7_points:
         rows.append(check_tree_sum(gen, dev, L, BATCH))
+    # K5a at every lane count a path or a table build gave it, so both of
+    # its launches (4 threads per lane up to 8,192 lanes, 2 beyond) meet the
+    # five special lanes at the paths' shapes
+    for B in add_lanes_plan(shapes):
+        rows.append(check_add(f"pt_add[B={B}]", *special_points(gen, dev, B), plain_reps=1))
     ragged = [check_keccak(gen, dev, 77)]
-    ragged += check_pow(gen, dev, 131)
+    ragged += check_pow(gen, dev, 333)
     ragged += check_curve(gen, dev, 201)
     ragged.append(check_double_chain(gen, dev, 37))
     ragged.append(check_affine_rows(gen, dev, 37, 16))
@@ -727,6 +845,8 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     ragged.append(check_msm_small(gen, dev, 77, 2, "msm_small"))
     ragged += check_scalar_mul(gen, dev, [203])
     ragged.append(check_tree_sum(gen, dev, 7, 93))
+    # K5a's 2-thread launch on a batch that is no multiple of its block
+    ragged.append(check_add("pt_add[B=12345]", *special_points(gen, dev, 12345), plain_reps=1))
     for r in ragged:
         r["name"] += " ragged"
     rows += ragged
@@ -734,7 +854,8 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     bad = [r["name"] for r in rows if r["err"] != 0]
     emit("kernels", ok=not bad, kernels=[
         dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
-             kernel_ms=r["ms"], plain_ms=r["plain_ms"], plain_B=r["plain_B"], plan=r.get("plan"),
+             kernel_ms=r["ms"], device_ms=r.get("device_ms"), plain_ms=r["plain_ms"],
+             plain_B=r["plain_B"], plan=r.get("plan"),
              launches=launches.get(kernel_of(r["name"])),
              bound_ms=r["bound_ms"], bound_by=r["bound_by"], compared=r["compared"])
         for r in rows])
@@ -1257,14 +1378,7 @@ def phase_profile(dev, path: str):
         run()
         torch.cuda.synchronize()
         profiled_wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        if "cuda" not in str(getattr(e, "device_type", "")).lower():
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        rows.append((e.key, float(us) / 1e3, int(e.count)))
+    rows = device_rows(prof)
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
         emit("profile", ok=False, path=path, wall_ms=wall_ms,
@@ -1307,7 +1421,7 @@ REPLACES = {
 }
 # the row of the kernels phase that stands for each kernel at the main path's shapes
 MAIN_ROW = {
-    "f1600": "f1600", "pow_const": "pow_const[fp_sqrt]", "fixed_msm": "fixed_msm[F=49]",
+    "f1600": "f1600", "pow_const": f"pow_const[fp_sqrt B={14 * BATCH}]", "fixed_msm": "fixed_msm[F=49]",
     "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add",
     "pt_double": f"pt_double[n={CHAIN_N} B=49]",
     "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": "tree_sum[L=17]",
@@ -1323,7 +1437,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the build and the kernel comparison (at the u64 shapes: "
-                    "the shapes the paths give K3, K6 and K7 are recorded only by a full run)")
+                    "the shapes the paths give K3, K5a, K6 and K7 are recorded only by a full run)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch of --path instead of the smoke phases")
     ap.add_argument("--path", choices=[p for p in PATH_KERNELS if not p.startswith("wnla")],
@@ -1378,7 +1492,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=counted[name], max_abs_err=r["err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=None, shape=r["shape"], plain_B=r["plain_B"],
+            library_ms=None, device_ms=r.get("device_ms"), shape=r["shape"],
+            plain_B=r["plain_B"],
             counted_on=COUNTED_ON.get(name, "verify"),
             launches_by_path={p: by_path[p][name] for p in by_path},
         ))

@@ -204,6 +204,31 @@ def test_chip_smoke_holds_k3_k6_k7_at_every_shape_the_paths_give_them(monkeypatc
     assert "shape_plan(" in inspect.getsource(cs.phase_kernels)
 
 
+def test_chip_smoke_holds_k5a_at_every_lane_count_the_paths_give_it():
+    """Every complete add the paths or the table builds make goes through
+    `cuda_curve.pt_add`, where the full run's record notes its lane count
+    (operands broadcast: the table build's (NW, F, 2^k) entries against
+    (NW, F, 1) doubles); the kernels phase holds K5a at each count, and its
+    fixed count is one where the plan takes 2 threads per lane. Recorded
+    here through the plain version on the CPU."""
+    import inspect
+
+    cs = _chip_smoke()
+    wrapper = cs.cuda_curve.pt_add
+    ident = lambda shape: cs.dc.identity(shape, device="cpu")
+    log = cs.new_shape_log()
+    with cs.recording_shapes(log, "verify"):
+        out = cs.dc.pt_add(ident((2, 3, 2)), ident((2, 3, 1)))
+        cs.dc.pt_add(ident((5,)), ident((1,)))
+    assert cs.cuda_curve.pt_add is wrapper
+    assert tuple(out.x.shape) == (16, 2, 3, 2) and bool(cs.dc.pt_is_identity(out).all())
+    assert log["pt_add"] == {12, 5}
+    lanes = cs.add_lanes_plan(log)
+    assert {12, 5} <= set(lanes) and set(cs.ADD_LANES) <= set(lanes)
+    assert all(cs.cuda_curve.pt_add_plan(B)[0] == 2 for B in cs.ADD_LANES)
+    assert "add_lanes_plan(shapes)" in inspect.getsource(cs.phase_kernels)
+
+
 def test_chip_smoke_gives_every_prover_tuple_a_row_index_row(monkeypatch):
     """Every position tuple handed to `msm_fixed_positions` reaches K3 as a
     row view of the one table (no copied rows), the full run's record keeps
