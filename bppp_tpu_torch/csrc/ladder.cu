@@ -49,24 +49,52 @@
 // (X, Y, Z).
 //
 // K7 replaces bppp_tpu/ops/pallas_msm.py::_tree_kernel (tree_sum_flat and the
-// layout shuffle of tree_sum). Points arrive as (16, L, B): limb i of point l
-// of lane b at ptr[(i * L + l) * B + b]. One thread owns one lane, reads its
-// L points straight from that layout (adjacent threads read adjacent lanes,
-// so every load coalesces) and accumulates them in order with L - 1
-// INCOMPLETE adds: identity operands are handled, a collision P == +-Q
-// degrades to the identity encoding. The plain version chains the same
-// incomplete add in the same order, so the limbs agree.
+// layout shuffle of tree_sum): the sum of the L points of each lane. Points
+// arrive as the port's int64 limb tensors, read where they lie: limb i of
+// point l of lane b of coordinate c at in[c][i * limb + l * point + b *
+// lane]; the sums are written as (16, B) int64. One launch per call.
+//
+// One thread walking a lane's L - 1 adds in order is a series of L - 1
+// dependent adds (16 at the u64 mirror's L = 17, 128 at WNLA-64's
+// commitment), on B / 128 blocks. So n threads ("slots") share a lane:
+// slot s sums the contiguous points [s L / n, (s + 1) L / n) in order with
+// INCOMPLETE adds (pt_add_inc; an empty slot holds the identity), and the n
+// partials join in shared memory by join.cuh's fixed tree of COMPLETE adds;
+// slot 0 stores the lane's sum. The series falls to about L / n + log2 n
+// adds. A block holds lpb lanes x n slots, slot-major (thread t = s * lpb +
+// l), so the threads of a warp read the same point of adjacent lanes.
+// cuda_ladder.tree_sum_plan gives (n, lpb) from the sweep on the card.
+//
+// Why the incomplete adds are safe. Inside a slot an add goes wrong only
+// where the running sum of the slot's points equals the next point (a
+// doubling: Z3 = 0 where 2P was due; the inverse case gives Z3 = 0, the
+// identity, which is the sum). That is a relation sum_{lo <= i < j} P_i =
+// P_j among the points the caller summed. The sequential order met one
+// only in the same way (a prefix sum equal to the next point), and for the
+// callers' points, multiples of distinct generators under Fiat-Shamir or
+// secret scalars, any such relation is a discrete-log relation (the
+// comment above pt_add_inc in field.cuh). Identity operands are handled; a
+// slot whose points sum to the identity holds an identity encoding (Z = 0)
+// that later adds and the join read as the identity. Partial sums that
+// collide with each other — two slots holding the same point, or one the
+// other's negative — meet only the join's complete adds, which handle the
+// doubling and the inverse. The kernel and the plain sequential chain
+// (cuda_ladder.tree_sum_plain) add in another order, so they agree as
+// points (compressed bytes); cuda_ladder.tree_sum_slots_plain runs the
+// kernel's order in eager PyTorch and agrees with it limb for limb.
 //
 // Bounds on an H100: K6 operations — per live lane 1 double and 13 adds for
 // the table, 4 doubles per window below the top nonzero one of the larger
 // half, one add per nonzero digit of either half, beta's multiply and the
-// join, against 7 * 64 bytes moved; K7 bytes for short sums —
-// (3 L + 3) * 64 bytes per lane against (L - 1) * 16 multiplies.
+// join, against 7 * 64 bytes moved; K7 bytes — (3 L + 3) * 128 bytes of
+// int64 limbs per lane against (L - 1) adds of 16 multiplies.
 #include "glv_walk.cuh"
 
 namespace {
 
 using namespace bppp;
+
+constexpr int TREE_MAX_THREADS = 256;  // K7's block at most
 
 // the split: 2 slots per lane, slot j walks GLV half j of [k] P
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -105,20 +133,50 @@ __global__ void scalar_mul_lane_kernel(const uint32_t* __restrict__ px,
   pt_store(ox, oy, oz, B, lane, acc);
 }
 
-__global__ void tree_sum_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
-                                const uint32_t* __restrict__ pz, uint32_t* __restrict__ ox,
-                                uint32_t* __restrict__ oy, uint32_t* __restrict__ oz, int L, int B) {
-  size_t lane = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (size_t)B) return;
-  const size_t stride = (size_t)L * B;
-  pt acc = pt_load(px, py, pz, stride, lane);
+// K7's operands: three int64 coordinates with their strides, in elements
+struct sum_io {
+  const int64_t* in[3];                   // x, y, z of (16, L, B) points
+  long long limb[3], point[3], lane[3];   // limb i of point l of lane b at i * limb + l * point + b * lane
+  int64_t* out[3];                        // (16, B) contiguous
+};
+
+__device__ __forceinline__ pt load_sum_point(const sum_io& io, int l, long long lane) {
+  pt r;
+  fe* c[3] = {&r.x, &r.y, &r.z};
+#pragma unroll
+  for (int k = 0; k < 3; k++)
+    *c[k] = fe_load64(io.in[k], io.limb[k], l * io.point[k] + lane * io.lane[k]);
+  return r;
+}
+
+// n slots per lane, lpb lanes per block, slot-major: thread t = s * lpb + l.
+// Threads past n * lpb (the block is whole warps) take slot n, which the
+// join skips; every thread reaches the join's barriers.
+__global__ void __launch_bounds__(TREE_MAX_THREADS)
+    tree_sum_kernel(sum_io io, int L, int B, int n, int lpb) {
+  extern __shared__ uint32_t sh[];
+  const int t = threadIdx.x;
+  const bool in_block = t < n * lpb;
+  const int slot = in_block ? t / lpb : n;
+  const int l = in_block ? t - slot * lpb : 0;
+  const long long lane = (long long)blockIdx.x * lpb + l;
+  const bool live = in_block && lane < B;
+  pt acc = pt_identity();
+  if (live) {
+    const int lo = (int)((long long)slot * L / n), hi = (int)((long long)(slot + 1) * L / n);
+    if (lo < hi) acc = load_sum_point(io, lo, lane);
 #pragma unroll 1
-  for (int l = 1; l < L; l++) {
-    size_t off = (size_t)l * B;
-    pt q = pt_load(px + off, py + off, pz + off, stride, lane);
-    pt_add_inc(&acc, &acc, &q);
+    for (int p = lo + 1; p < hi; p++) {
+      pt q = load_sum_point(io, p, lane);
+      pt_add_inc(&acc, &acc, &q);
+    }
   }
-  pt_store(ox, oy, oz, B, lane, acc);
+  join_slots(sh, &acc, slot, n, l, lpb);
+  if (live && slot == 0) {
+    fe_store64(io.out[0], B, lane, acc.x);
+    fe_store64(io.out[1], B, lane, acc.y);
+    fe_store64(io.out[2], B, lane, acc.z);
+  }
 }
 
 }  // namespace
@@ -147,15 +205,26 @@ extern "C" int bppp_scalar_mul(const void* px, const void* py, const void* pz, c
 #endif
 
 #ifdef __CUDACC__
-// px, py, pz: (16, L, B) limb words, L >= 1; outputs (16, B). Returns
-// cudaGetLastError().
-extern "C" int bppp_tree_sum(const void* px, const void* py, const void* pz, void* ox, void* oy,
-                             void* oz, int L, int B, void* stream) {
+// ins: x, y, z int64 limbs; strides: (limb, point, lane) stride of each, in
+// elements; outs: three (16, B) contiguous int64. n slots per lane (past
+// L they hold the identity), lpb lanes per block, n * lpb <=
+// TREE_MAX_THREADS. Returns cudaGetLastError().
+extern "C" int bppp_tree_sum(const void* const* ins, const long long* strides, void* const* outs,
+                             int L, int B, int n, int lpb, void* stream) {
   if (B <= 0) return 0;
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  tree_sum_kernel<<<(B + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)pz, (uint32_t*)ox, (uint32_t*)oy,
-      (uint32_t*)oz, L, B);
+  if (L < 1 || n < 1 || lpb < 1 || n * lpb > TREE_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  sum_io io;
+  for (int k = 0; k < 3; k++) {
+    io.in[k] = (const int64_t*)ins[k];
+    io.limb[k] = strides[3 * k];
+    io.point[k] = strides[3 * k + 1];
+    io.lane[k] = strides[3 * k + 2];
+    io.out[k] = (int64_t*)outs[k];
+  }
+  const size_t smem = (size_t)join_words(n, lpb) * sizeof(uint32_t);
+  tree_sum_kernel<<<(B + lpb - 1) / lpb, (n * lpb + 31) / 32 * 32, smem, (cudaStream_t)stream>>>(
+      io, L, B, n, lpb);
   return (int)cudaGetLastError();
 }
 #endif

@@ -3,9 +3,10 @@
 
 Counterpart of the ladder and tree halves of `bppp_tpu/ops/pallas_msm.py`.
 Wrappers take and return int64 limb tensors in the interchange layout.
-On a CUDA tensor a wrapper narrows to int32 storage, launches its kernel
-on the current stream and widens the result, without synchronising; on a
-CPU tensor — and only there — it runs the plain PyTorch version below.
+On a CUDA tensor a wrapper launches its kernel on the current stream,
+without synchronising — K6 narrows to int32 storage first and widens the
+result, K7 reads and writes the int64 limbs where they lie; on a CPU
+tensor — and only there — it runs the plain PyTorch version below.
 
 K6 `scalar_mul` — replaces `pallas_msm._ladder_kernel` (`scalar_mul_flat`).
 [k]P per lane. Bound on an H100: operations — per live lane 1 double and
@@ -28,22 +29,29 @@ package's graph ladder; kernel and plain version agree as POINTS
 (compressed bytes), not in (X, Y, Z).
 
 K7 `tree_sum` — replaces `pallas_msm._tree_kernel` (`tree_sum_flat`, and
-the layout shuffle of `tree_sum`). (16, L, B) -> (16, B): L - 1 INCOMPLETE
-adds per lane, in order (identity operands handled; a collision P == +-Q
-degrades to the identity, which for sums of multiples of distinct
-generators needs a discrete-log relation). Bound on an H100: bytes for
-the short sums of the protocol ((3 L + 3) * 64 bytes per lane). The kernel
-reads the (16, L, B) layout as it stands — adjacent threads read adjacent
-lanes — so no copy rearranges the points first, and L is not padded.
+the layout shuffle of `tree_sum`). (16, L, *batch) -> (16, *batch).
+Bound on an H100: bytes ((3 L + 3) * 128 bytes of int64 limbs per lane)
+against L - 1 adds. One thread walking a lane's L - 1 adds in order is a
+series of L - 1 adds on a few SMs, so `tree_sum_plan(L, B)` gives a lane
+n threads: slot s sums its contiguous share of the points in order with
+INCOMPLETE adds (identity operands handled; a collision P == +-Q degrades
+to the identity, which for sums of multiples of distinct generators needs
+a discrete-log relation, as in the sequential order), and the n partials
+join by `csrc/join.cuh`'s fixed tree of COMPLETE adds. The kernel reads
+the coordinates where they lie (a limb, a point and a lane stride each),
+so a call is one launch, and L is not padded.
 
-For K7 kernel and plain version apply the same formulas in the same
-order and with the same select order, so they agree in (X, Y, Z) limb for
-limb, not only as points.
+Kernel and plain version add in another order, so they agree as POINTS
+(compressed bytes), not in (X, Y, Z): `tree_sum_plain` is the sequential
+chain, the reference's order, and the CPU path. `tree_sum_slots_plain`
+runs the kernel's order — each slot's incomplete adds, then the join's
+complete adds — and agrees with the kernel limb for limb.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -149,6 +157,44 @@ def tree_sum_plain(x, y, z):
     return acc
 
 
+def slot_bounds(L: int, n: int):
+    """[(lo, hi)] of K7's n slots over L points: slot s sums points
+    lo <= l < hi, as the kernel computes them (empty where n > L)."""
+    return [(s * L // n, (s + 1) * L // n) for s in range(n)]
+
+
+def tree_sum_slots_plain(x, y, z, n: int):
+    """K7's order in eager PyTorch, for n slots per lane: slot s sums its
+    points (`slot_bounds`) in order with incomplete adds, an empty slot
+    holds the identity (0, 1, 0), and the n partials join as
+    `csrc/join.cuh` joins them — while m > 1 slots are left, h = ceil(m /
+    2) and slot s < m - h adds slot s + h with a complete add. The same
+    formulas in the same order as the kernel, so the limbs agree."""
+    L = x.shape[1]
+    bounds = slot_bounds(L, n)
+    acc = [torch.zeros((16, n) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+           for _ in range(3)]
+    acc[1][0] = 1
+    for j in range(max(hi - lo for lo, hi in bounds)):
+        live = [s for s, (lo, hi) in enumerate(bounds) if lo + j < hi]
+        slots = torch.tensor(live, device=x.device)
+        pts = torch.tensor([bounds[s][0] + j for s in live], device=x.device)
+        q = [c[:, pts] for c in (x, y, z)]
+        if j:
+            q = pt_add_inc_plain(*(a[:, slots] for a in acc), *q)
+        for a, v in zip(acc, q):
+            a[:, slots] = v
+    m = n
+    while m > 1:
+        h = (m + 1) // 2
+        k = m - h
+        s = cuda_curve.pt_add_plain(*(a[:, :k] for a in acc), *(a[:, h:m] for a in acc))
+        for a, v in zip(acc, s):
+            a[:, :k] = v
+        m = h
+    return tuple(a[:, 0] for a in acc)
+
+
 # -- wrappers --------------------------------------------------------------------
 
 
@@ -172,9 +218,66 @@ def scalar_mul(px, py, pz, k):
     return tuple(o.to(torch.int64).reshape(shape) for o in outs)
 
 
+# K7's launch: n slots per lane, K7_LPB lanes per block (more where the
+# slots fill less than a warp). The sweep on the H100 (device ms per launch,
+# `tools/compare_designs.py`, PERF.md) at 1024 lanes: L = 17 best at n = 8
+# (0.0575; n = 1 0.1446, n = 16 0.0594), L = 33 at n = 16 (0.0674), L = 65
+# at n = 16 (0.0875; n = 32 0.0911), L = 129 at n = 32 or 16 (0.1410,
+# 0.1439; n = 1 1.1764), and the ragged (7, 93) at n = 4 (0.0399): about
+# two points a slot, while n B stays within K7_THREADS; 8 lanes per block
+# within 10 % of 16 and 32 wherever n >= 4.
+K7_BLOCK = 256  # threads per block at most (the kernel's TREE_MAX_THREADS)
+K7_LPB = 8
+K7_MAX_SLOTS = 32
+K7_THREADS = 16384
+
+
+def tree_sum_plan(L: int, B: int) -> tuple[int, int]:
+    """(slots per lane, lanes per block) of K7's launch over B lanes of L
+    points: n the largest power of two at most ceil(L / 2), K7_MAX_SLOTS
+    and K7_THREADS / B (at least 1); lanes per block K7_LPB, or as many as
+    fill a warp."""
+    n = 1
+    while 2 * n <= min(-(-L // 2), K7_MAX_SLOTS) and 2 * n * B <= K7_THREADS:
+        n *= 2
+    return n, max(K7_LPB, 32 // n)
+
+
+def _sum_view(t: torch.Tensor):
+    """A (16, L, *batch) int64 coordinate on the card as K7 reads it:
+    (tensor, limb stride, point stride, lane stride). The tensor is t
+    itself where its batch axes fold into one strided axis, else one
+    contiguous copy."""
+    cuda_curve._check_operand(t)
+    st = cuda_curve.lane_strides((16,) + tuple(t.shape[2:]), (t.stride(0),) + t.stride()[2:])
+    if st is None:
+        t = t.contiguous()
+        st = cuda_curve.lane_strides((16,) + tuple(t.shape[2:]), (t.stride(0),) + t.stride()[2:])
+    return t, st[0], t.stride(1), st[1]
+
+
+def tree_sum_launch(x, y, z, n: int, lpb: int):
+    """Launch K7 with n slots per lane and lpb lanes per block on three
+    (16, L, *batch) int64 coordinates -> three (16, *batch) int64."""
+    shape = x.shape
+    views = [_sum_view(c) for c in (x, y, z)]
+    outs = torch.empty((3, 16) + tuple(shape[2:]), dtype=torch.int64, device=x.device).unbind(0)
+    fn = _build.bind("ladder", "bppp_tree_sum",
+                     [ctypes.POINTER(_VP), ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(_VP)]
+                     + [ctypes.c_int] * 4 + [_VP])
+    ptrs = (_VP * 3)(*(v[0].data_ptr() for v in views))
+    strides = (ctypes.c_longlong * 9)(*(s for v in views for s in v[1:]))
+    optrs = (_VP * 3)(*(o.data_ptr() for o in outs))
+    err = fn(ptrs, strides, optrs, shape[1], math.prod(shape[2:]), n, lpb, _build.stream())
+    LAUNCHES["tree_sum"] += 1
+    _build.check(err, "tree_sum")
+    return tuple(outs)
+
+
 def tree_sum(x, y, z):
     """Sum of the L points of axis 1. x, y, z: (16, L, *batch) int64
-    Jacobian coordinates, L >= 1 -> three (16, *batch) int64."""
+    Jacobian coordinates, L >= 1 -> three (16, *batch) int64. One launch:
+    the kernel reads the coordinates where they lie."""
     shape = x.shape
     if x.ndim < 2 or shape[0] != 16 or y.shape != shape or z.shape != shape:
         raise ValueError("points must be three (16, L, *batch) tensors")
@@ -183,12 +286,4 @@ def tree_sum(x, y, z):
         raise ValueError("tree_sum needs at least one point per lane")
     if not x.is_cuda:
         return tree_sum_plain(x, y, z)
-    ins = [flat_i32(c, shape).reshape(16, L, -1) for c in (x, y, z)]
-    B = ins[0].shape[2]
-    outs = [torch.empty((16, B), dtype=torch.int32, device=x.device) for _ in range(3)]
-    fn = _build.bind("ladder", "bppp_tree_sum", [_VP] * 6 + [ctypes.c_int, ctypes.c_int, _VP])
-    err = fn(*(t.data_ptr() for t in ins + outs), L, B, _build.stream())
-    LAUNCHES["tree_sum"] += 1
-    _build.check(err, "tree_sum")
-    out_shape = (16,) + tuple(shape[2:])
-    return tuple(o.to(torch.int64).reshape(out_shape) for o in outs)
+    return tree_sum_launch(x, y, z, *tree_sum_plan(L, math.prod(shape[2:])))

@@ -30,11 +30,12 @@ and drives the port's paths at a batch of 1024 u64 range proofs:
 
 For each path it checks that every kernel of that path was launched and
 that no plain version was. The kernel comparison comes after the paths,
-at the u64 path's shapes and at every shape the paths gave K3 (each table
-and row subset), K6 (each lane count) and K7 (each point count), which
-are recorded as the paths run. Every phase prints one JSON line; any mismatch
-or exception ends the run with a non-zero exit code. There is no CPU
-route: without a CUDA device the script fails.
+at the u64 path's shapes and at every shape the paths gave K1 (each lane
+count), K3 (each table and row subset), K5a and K6 (each lane count) and
+K7 (each point count and lane count), which are recorded as the paths
+run. Every phase prints one JSON line; any mismatch or exception ends the
+run with a non-zero exit code. There is no CPU route: without a CUDA
+device the script fails.
 
 Bounds (`bound_ms`) are the least time the card could take for the same
 work: bytes moved (each input read once, each output written once) over
@@ -42,8 +43,9 @@ work: bytes moved (each input read once, each output written once) over
 H100 SXM data sheet gives 67 TFLOP/s for fp32 outside the tensor cores,
 and the SM has half as many int32 lanes as fp32 lanes; a multiply-add
 counts as two operations. Work that depends on the data (zero digits add
-nothing) is counted from this run's inputs. K2's and K5a's rows also give
-the kernel's own device time per launch (`device_ms`, torch.profiler)
+nothing) is counted from this run's inputs. Every row also gives the
+device time of the hand-written kernels per call (`device_ms`,
+torch.profiler, all rows in one profiler session at the end of the phase)
 beside the wrapper's time by CUDA events (`kernel_ms`), which includes the
 host's work of the call.
 """
@@ -211,21 +213,59 @@ def device_rows(prof):
     return rows
 
 
-def device_ms(fn, kernel: str, reps: int = 10):
-    """Mean device time in milliseconds of one launch of `kernel` (part of
-    its symbol) over `reps` calls of `fn`, by torch.profiler; None if the
-    profiler saw no such launch (not measured)."""
+MARK_CYCLES = 1000  # a marker kernel's spin (torch.cuda._sleep) between measured calls
+
+
+def device_times(fns, reps: int = 10, tries: int = 2) -> list:
+    """[device ms per call of each fn of `fns`]: the time of the hand-written
+    kernels (HAND_WRITTEN) its calls launch, without the host's work around
+    them or the wrappers' eager copies, by torch.profiler; None where the
+    profiler saw none of them (not measured). All of `fns` run in ONE
+    profiler session on one stream, a marker kernel (`torch.cuda._sleep`)
+    before each fn's calls and after the last: in the card's own order of
+    execution, a kernel belongs to the fn whose marker it follows. Only the
+    session's last len(fns) + 1 markers count, and a session that shows
+    fewer is run again, up to `tries` times. (One profiler session per
+    measurement gave no device events from the twelfth session of a process
+    on; a range's kernels found by host time mixed with the next range's
+    where the ranges were short; a session once showed too few markers,
+    PERF.md §7.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    for fn in fns:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = [r for r in device_rows(prof) if kernel in r[0]]
-    count = sum(r[2] for r in mine)
-    return sum(r[1] for r in mine) / count if count else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                torch.cuda._sleep(MARK_CYCLES)
+                for _ in range(reps):
+                    fn()
+            torch.cuda._sleep(MARK_CYCLES)
+            torch.cuda.synchronize()
+        seq = sorted((e.time_range.start, "spin_kernel" in e.name,
+                      e.time_range.end - e.time_range.start)
+                     for e in prof.events() if "cuda" in str(e.device_type).lower()
+                     and ("spin_kernel" in e.name or any(h in e.name for h in HAND_WRITTEN)))
+        marks = [k for k, (_, mark, _) in enumerate(seq) if mark]
+        if len(marks) > len(fns):
+            break
+    else:
+        return [None] * len(fns)
+    marks = marks[len(marks) - len(fns) - 1:]
+    out = []
+    for lo, hi in zip(marks, marks[1:]):
+        us = [d for _, mark, d in seq[lo + 1:hi]]
+        out.append(sum(us) / 1e3 / reps if us else None)
+    return out
+
+
+def measure_device(rows) -> None:
+    """Set `device_ms` of every row that carries a `device_fn` (and drop
+    the function), all rows in one profiler session (`device_times`)."""
+    timed = [r for r in rows if "device_fn" in r]
+    for r, ms in zip(timed, device_times([r.pop("device_fn") for r in timed])):
+        r["device_ms"] = ms
 
 
 def bound(nbytes: float, ops: float):
@@ -295,18 +335,28 @@ def kernel_of(row_name: str) -> str:
     return row_name.split("[")[0].split(" ")[0]
 
 
-def check_keccak(gen, dev, B):
-    st = torch.from_numpy(gen.integers(0, 256, size=(200, B))).to(dev)
+def check_keccak(gen, dev, B, stride=1):
+    """K1 on B random sponges (lane 0 all zero bytes, the last all 0xFF),
+    read in place from every stride-th lane of a (200, stride B) state,
+    against the plain version on every byte."""
+    st = torch.from_numpy(gen.integers(0, 256, size=(200, stride * B))).to(dev)[:, ::stride]
     st[:, 0] = 0
+    st[:, B - 1] = 255
     got = cuda_keccak.f1600(st)
     want = cuda_keccak.f1600_plain(st)
     err = max_err(got, want)
     ms = time_ms(lambda: cuda_keccak.f1600(st))
     plain_ms = time_ms(lambda: cuda_keccak.f1600_plain(st), reps=3)
-    # per round about 216 64-bit logic operations = 432 32-bit ones
-    b_ms, by = bound(2 * 200 * 4 * B, 24 * 432 * B)
-    return dict(name="f1600", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
-                bound_ms=b_ms, bound_by=by, shape=[200, B], compared="bytes")
+    # per round about 216 64-bit logic operations = 432 32-bit ones; int64
+    # bytes in and out
+    b_ms, by = bound(2 * 200 * 8 * B, 24 * 432 * B)
+    nthr, lpb = cuda_keccak.f1600_plan(B)
+    name = f"f1600[B={B}" + (f" stride={stride}]" if stride > 1 else "]")
+    return dict(name=name, err=err, ms=ms, plain_ms=plain_ms, plain_B=B, bound_ms=b_ms,
+                bound_by=by, shape=[200, B], compared="bytes",
+                plan=dict(threads_per_lane=nthr, lanes_per_block=lpb,
+                          threads_per_block=cuda_keccak.threads_per_block(nthr, lpb)),
+                device_fn=lambda: cuda_keccak.f1600(st))
 
 
 # K2's exponents: the three the paths use, and one with no named chain per
@@ -340,16 +390,16 @@ def check_pow(gen, dev, B, exps=POW_NAMED):
         assert f.limbs_to_ints(want.cpu()) == [pow(v, e, mod) for v in f.limbs_to_ints(xs.cpu())], \
             f"pow_const[{tag}]: the plain version is not x^e"
         ms = time_ms(lambda: cuda_msm.pow_const(x, e, kind))
-        dev_ms = device_ms(lambda: cuda_msm.pow_const(x, e, kind), "pow_kernel")
         chain = f.pow_chain(e)
         mad = (MAD_MUL_P * chain.multiplies + MAD_SQR_P * chain.squares) if kind == "p" else \
             (MAD_MUL_N * chain.multiplies + MAD_SQR_N * chain.squares)
         b_ms, by = bound(2 * 16 * 8 * B, 2 * mad * B)
         out.append(dict(name=f"pow_const[{tag} B={B}]", err=err, ms=ms, plain_ms=plain_ms,
                         plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[16, B],
-                        compared="limbs", device_ms=dev_ms, plan=dict(squares=chain.squares,
+                        compared="limbs", plan=dict(squares=chain.squares,
                                                     multiplies=chain.multiplies,
-                                                    steps=len(chain.steps), slots=chain.slots)))
+                                                    steps=len(chain.steps), slots=chain.slots),
+                        device_fn=lambda x=x, e=e, kind=kind: cuda_msm.pow_const(x, e, kind)))
     return out
 
 
@@ -368,7 +418,6 @@ def check_add(name, p, q, plain_reps=3):
     want, plain_ms = timed_once(lambda: cuda_curve.pt_add_plain(*p, *q))
     err = max_err(got, want)
     ms = time_ms(lambda: cuda_curve.pt_add(*p, *q))
-    dev_ms = device_ms(lambda: cuda_curve.pt_add(*p, *q), "pt_add_kernel")
     if plain_reps > 1:
         plain_ms = time_ms(lambda: cuda_curve.pt_add_plain(*p, *q), reps=plain_reps)
     live = int((~(dc.pt_is_identity(p) | dc.pt_is_identity(q))).sum())
@@ -376,8 +425,9 @@ def check_add(name, p, q, plain_reps=3):
     b_ms, by = bound(add_bytes(list(p) + list(q)), 2 * MAD_ADD * live)
     T, lpb = cuda_curve.pt_add_plan(B)
     return dict(name=name, err=err, ms=ms, plain_ms=plain_ms, plain_B=B, bound_ms=b_ms,
-                bound_by=by, shape=list(got[0].shape), compared="limbs", device_ms=dev_ms,
-                plan=dict(threads_per_lane=T, lanes_per_block=lpb))
+                bound_by=by, shape=list(got[0].shape), compared="limbs",
+                plan=dict(threads_per_lane=T, lanes_per_block=lpb),
+                device_fn=lambda: cuda_curve.pt_add(*p, *q))
 
 
 def special_points(gen, dev, B):
@@ -406,7 +456,8 @@ def check_curve(gen, dev, B):
     plain_ms = time_ms(lambda: cuda_curve.pt_double_plain(*p), reps=3)
     b_ms, by = bound(6 * 16 * 4 * B, 2 * MAD_DBL * B)
     dbl = dict(name="pt_double", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
-               bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs")
+               bound_ms=b_ms, bound_by=by, shape=[16, B], compared="limbs",
+               device_fn=lambda: cuda_curve.pt_double(*p))
     return [add, dbl]
 
 
@@ -446,7 +497,8 @@ def check_double_chain(gen, dev, B, n=CHAIN_N):
     ms = time_ms(lambda: cuda_curve.pt_double_chain(*p, n))
     b_ms, by = bound((3 + 3 * n) * 16 * 4 * B, 2 * MAD_DBL * n * (B - 1))
     return dict(name=f"pt_double[n={n} B={B}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
-                bound_ms=b_ms, bound_by=by, shape=[16, n, B], compared="limbs")
+                bound_ms=b_ms, bound_by=by, shape=[16, n, B], compared="limbs",
+                device_fn=lambda: cuda_curve.pt_double_chain(*p, n))
 
 
 # the table build's rows: NW = 32 windows of 2^8 entries for each of the
@@ -475,7 +527,8 @@ def check_affine_rows(gen, dev, M, NE):
     mads = live * (6 * MAD_MUL_P + MAD_SQR_P) + rows * (78 * MAD_MUL_P + 252 * MAD_SQR_P)
     b_ms, by = bound(5 * 16 * 4 * M * NE, 2 * mads)
     return dict(name=f"affine_rows[M={M} NE={NE}]", err=err, ms=ms, plain_ms=plain_ms,
-                plain_B=M, bound_ms=b_ms, bound_by=by, shape=[16, M, NE], compared="limbs")
+                plain_B=M, bound_ms=b_ms, bound_by=by, shape=[16, M, NE], compared="limbs",
+                device_fn=lambda: cuda_curve.affine_rows(*p))
 
 
 def check_fixed(gen, dev, B, tables, tag):
@@ -500,7 +553,8 @@ def check_fixed(gen, dev, B, tables, tag):
     return dict(name=f"fixed_msm[{tag}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
                 bound_ms=b_ms, bound_by=by, shape=[16, F, B], w_bits=tables.w_bits,
                 plan=dict(slices=cuda_fixed_base.slice_count(B, F, tables.n_windows)),
-                compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
+                compared="compressed bytes (kernel adds are incomplete, plain adds complete)",
+                device_fn=lambda: cuda_fixed_base.fixed_msm(tables, sc))
 
 
 def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
@@ -566,7 +620,8 @@ def check_msm_small(gen, dev, B, D, kernel="msm_small_wnaf"):
     plan = dict(zip(("threads_per_lane", "lanes_per_block"), plan))
     return dict(name=f"{kernel}[D={D}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
                 plain_B=len(lanes), bound_ms=b_ms, bound_by=by, shape=[D, 16, B],
-                compared="compressed bytes (kernel adds are incomplete, plain adds complete)")
+                compared="compressed bytes (kernel adds are incomplete, plain adds complete)",
+                device_fn=lambda: wrapper(*coords, *ins))
 
 
 # K6's edge lanes: (lane, scalar) — k = 0, 1, n - 1, a small scalar, lambda
@@ -643,32 +698,69 @@ def check_scalar_mul(gen, dev, sizes):
         rows.append(dict(name=f"scalar_mul[B={B}]", err=err, ms=ms, plain_ms=plain_ms, plan=plan,
                          plain_B=len(idx), bound_ms=b_ms, bound_by=by, shape=[16, B],
                          compared="compressed bytes (one plain call over the plain lanes of "
-                                  "every size; kernel adds are incomplete, plain adds complete)"))
+                                  "every size; kernel adds are incomplete, plain adds complete)",
+                         device_fn=lambda ins=ins: cuda_ladder.scalar_mul(*ins)))
     return rows
 
 
-def check_tree_sum(gen, dev, L, B):
+def tree_points(gen, dev, L, B, n, strided=False):
+    """K7's inputs: (16, L, B) random points (if `strided`, a view of a
+    (16, B, L) stack, which the kernel reads in place) with these
+    lanes: 0 all identities; 1, 2, 3 an identity first, last and middle
+    point; 4 its points 0 and 1 negatives of each other (a run that sums
+    to the identity); 5 every slot that is as long as slot 0 under n
+    slots (two points or more) a copy of slot 0's points, so the join meets
+    equal partials (a doubling). -> (points, mask of the identity points)."""
     p = rand_points(gen, (L, B), dev)
-    # identity operands: a whole lane, a first point, a last point, a middle one
     lane = torch.arange(B, device=dev)[None]
     row = torch.arange(L, device=dev)[:, None]
     dead = (lane == 0) | ((lane == 1) & (row == 0)) | ((lane == 2) & (row == L - 1)) \
         | ((lane == 3) & (row == L // 2))
     p = dc.pt_select(dead, dc.identity((L, B), device=dev), p)
+    if B > 4 and L > 1:
+        for c, v in zip(p, dc.pt_neg(dc.PointJ(*(c[:, 0, 4] for c in p)))):
+            c[:, 1, 4] = v
+    bounds = cuda_ladder.slot_bounds(L, n)
+    lo0, hi0 = bounds[0]
+    if B > 5 and hi0 - lo0 >= 2:  # a doubling inside a slot would need a dlog relation
+        for lo, hi in bounds[1:]:
+            if hi - lo == hi0 - lo0:
+                for c in p:
+                    c[:, lo:hi, 5] = c[:, lo0:hi0, 5]
+    if strided:
+        p = dc.PointJ(*(c.transpose(1, 2).contiguous().transpose(1, 2) for c in p))
+    return p, dead
+
+
+def check_tree_sum(gen, dev, L, B, strided=False):
+    """K7 on B lanes of L points (`tree_points`), in limbs against the plain
+    mirror of its own order under its plan (`tree_sum_slots_plain`), and
+    in compressed bytes against the plain sequential chain and the
+    pairwise reduction with complete adds; on every lane while L B is at
+    most the u64 mirror's 17 x 1024, else on the plain lanes."""
+    n, lpb = cuda_ladder.tree_sum_plan(L, B)
+    p, dead = tree_points(gen, dev, L, B, n, strided)
     got = cuda_ladder.tree_sum(*p)
-    want, plain_ms = timed_once(lambda: cuda_ladder.tree_sum_plain(*p))
-    err = max_err(got, want)
     assert bool(dc.pt_is_identity(dc.PointJ(*got))[0]), "a sum of identities is the identity"
-    # the same POINT as the pairwise reduction with complete adds
-    ref = dc.compress(dc.PointJ(*cuda_curve.tree_sum_plain(*p)))
-    err = max(err, max_err(dc.compress(dc.PointJ(*got)), ref))
+    lanes = torch.arange(B, device=dev) if L * B <= 17 * BATCH else plain_lanes(B, dev)
+    small = [c[..., lanes] for c in p]
+    want, plain_ms = timed_once(lambda: cuda_ladder.tree_sum_plain(*small))
+    got_l = dc.PointJ(*(c[:, lanes] for c in got))
+    err = max_err(got_l, cuda_ladder.tree_sum_slots_plain(*small, n))
+    for ref in (want, cuda_curve.tree_sum_plain(*small)):
+        err = max(err, max_err(dc.compress(got_l), dc.compress(dc.PointJ(*ref))))
     ms = time_ms(lambda: cuda_ladder.tree_sum(*p))
     live_adds = int((~dead).sum()) - int((~dead).any(dim=0).sum())
-    b_ms, by = bound((3 * L + 3) * 16 * 4 * B, 2 * MAD_ADD * live_adds)
-    return dict(name=f"tree_sum[L={L}]", err=err, ms=ms, plain_ms=plain_ms, plain_B=B,
+    # int64 limbs: L points in, one out, per lane
+    b_ms, by = bound((3 * L + 3) * 16 * 8 * B, 2 * MAD_ADD * live_adds)
+    name = f"tree_sum[L={L} B={B}" + (" strided]" if strided else "]")
+    return dict(name=name, err=err, ms=ms, plain_ms=plain_ms, plain_B=len(lanes),
                 bound_ms=b_ms, bound_by=by, shape=[16, L, B],
-                compared="limbs against the chained incomplete adds, compressed bytes "
-                         "against the pairwise complete reduction")
+                plan=dict(slots_per_lane=n, lanes_per_block=lpb),
+                compared="limbs against the plain mirror of the kernel's order "
+                         "(tree_sum_slots_plain), compressed bytes against the chained "
+                         "incomplete adds and the pairwise complete reduction",
+                device_fn=lambda: cuda_ladder.tree_sum(*p))
 
 
 def round0_r_positions():
@@ -684,9 +776,11 @@ def round0_r_positions():
 
 # the shapes the kernels phase holds K6 and K7 at with or without a record:
 # the u64 mirror verifier's P_t ladder (17 points) and first generator fold
-# (32), and its sum over 17 points
+# (32), and its sum over 17 points of 1024 lanes
 SCALAR_MUL_LANES = (17 * BATCH, 32 * BATCH)
-TREE_SUM_L = (17,)
+TREE_SUM_SHAPES = ((17, BATCH),)
+# K1 at the verifier's two batches
+KECCAK_LANES = (BATCH, BIG_BATCH)
 # and K5a at the u64 table build's last add (32 windows x 49 generators x
 # 128 entries), under the launch with 2 threads per lane
 ADD_LANES = (32 * 49 * 128,)
@@ -694,25 +788,25 @@ ADD_LANES = (32 * 49 * 128,)
 
 def new_shape_log() -> dict:
     return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}, "pt_add": set(),
-            "table_builds": []}
+            "f1600": set(), "table_builds": []}
 
 
 @contextlib.contextmanager
 def recording_shapes(log: dict, where: str):
-    """For the block, note what each launch of K3, K5a, K6 and K7 is given,
-    so the kernels phase holds each of them at every shape a path gave it:
-    K5a's and K6's lane counts, K7's point count L, and every table or row
-    subset K3 walked (by identity, with the phase `where` it was first met
-    in)."""
+    """For the block, note what each launch of K1, K3, K5a, K6 and K7 is
+    given, so the kernels phase holds each of them at every shape a path
+    gave it: K1's, K5a's and K6's lane counts, K7's (point count L, lane
+    count) pairs, and every table or row subset K3 walked (by identity,
+    with the phase `where` it was first met in)."""
     orig = (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-            cuda_curve.pt_add)
+            cuda_curve.pt_add, cuda_keccak.f1600)
 
     def scalar_mul(px, py, pz, k):
         log["scalar_mul"].add(torch.broadcast_shapes(px.shape, k.shape)[1:].numel())
         return orig[0](px, py, pz, k)
 
     def tree_sum(x, y, z):
-        log["tree_sum"].add(x.shape[1])
+        log["tree_sum"].add((x.shape[1], x.shape[2:].numel()))
         return orig[1](x, y, z)
 
     def fixed_msm(tab, scalars):
@@ -723,24 +817,34 @@ def recording_shapes(log: dict, where: str):
         log["pt_add"].add(torch.broadcast_shapes(*(c.shape for c in ops))[1:].numel())
         return orig[3](*ops)
 
+    def f1600(state):
+        log["f1600"].add(state.shape[1:].numel())
+        return orig[4](state)
+
     (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-     cuda_curve.pt_add) = scalar_mul, tree_sum, fixed_msm, pt_add
+     cuda_curve.pt_add, cuda_keccak.f1600) = scalar_mul, tree_sum, fixed_msm, pt_add, f1600
     try:
         yield log
     finally:
         (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-         cuda_curve.pt_add) = orig
+         cuda_curve.pt_add, cuda_keccak.f1600) = orig
 
 
 def shape_plan(log, known_tables=()):
     """What the kernels phase holds K6, K7 and K3 at: the fixed shapes and
-    every one in `log`. -> (K6 lane counts, K7 point counts, [(tables,
-    where)] of the recorded tables not in `known_tables`)."""
+    every one in `log`. -> (K6 lane counts, K7 (point count, lane count)
+    pairs, [(tables, where)] of the recorded tables not in `known_tables`)."""
     log = log or new_shape_log()
     known = {id(t) for t in known_tables}
     return (sorted(set(SCALAR_MUL_LANES) | log["scalar_mul"]),
-            sorted(set(TREE_SUM_L) | log["tree_sum"]),
+            sorted(set(TREE_SUM_SHAPES) | log["tree_sum"]),
             [tw for key, tw in log["fixed_msm"].items() if key not in known])
+
+
+def keccak_lanes_plan(log):
+    """The lane counts the kernels phase holds K1 at: KECCAK_LANES and every
+    count in `log` (each transcript's batch on the paths)."""
+    return sorted(set(KECCAK_LANES) | (log or new_shape_log())["f1600"])
 
 
 def add_lanes_plan(log):
@@ -772,7 +876,9 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     rows = []
     # the main path's shapes at a batch of 1024, and a ragged batch that is
     # no multiple of the block size
-    rows.append(check_keccak(gen, dev, BATCH))
+    # K1 at every lane count a path gave it (the verifiers' 1024 and 16384)
+    for B in keccak_lanes_plan(shapes):
+        rows.append(check_keccak(gen, dev, B))
     for B in (14 * BATCH, BATCH):
         rows += check_pow(gen, dev, B)
     rows += check_pow(gen, dev, BATCH, POW_OTHER)
@@ -782,7 +888,7 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     rows.append(check_fixed(gen, dev, BATCH, tables["gv"], "F=17"))
     r_rows = tables["full"].subset(round0_r_positions())
     rows.append(check_fixed(gen, dev, BATCH, r_rows, f"F={r_rows.n_points} prover R"))
-    k6_lanes, k7_points, k3_tables = shape_plan(
+    k6_lanes, k7_shapes, k3_tables = shape_plan(
         shapes, (tables["full"], tables["gv"], r_rows))
     # the table build's doubling chain and affine step at every shape a
     # build gave them (the u64 table's 49 generators, WNLA's 33 / 65 / 129)
@@ -821,16 +927,17 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
         rows[-1]["name"] += f" B={BIG_BATCH}"
     # the ladder at every lane count a path gave it (the mirror verifiers'
     # ladders and folds, the WNLA commitment over 1 + 2 sz points per lane),
-    # the sum at every point count
+    # the sum at every (point count, lane count) pair (the u64 mirror's 17
+    # points, the WNLA commitments' 33 / 65 / 129, the prover's grouped sums)
     rows += check_scalar_mul(gen, dev, k6_lanes)
-    for L in k7_points:
-        rows.append(check_tree_sum(gen, dev, L, BATCH))
+    for L, B in k7_shapes:
+        rows.append(check_tree_sum(gen, dev, L, B))
     # K5a at every lane count a path or a table build gave it, so both of
     # its launches (4 threads per lane up to 8,192 lanes, 2 beyond) meet the
     # five special lanes at the paths' shapes
     for B in add_lanes_plan(shapes):
         rows.append(check_add(f"pt_add[B={B}]", *special_points(gen, dev, B), plain_reps=1))
-    ragged = [check_keccak(gen, dev, 77)]
+    ragged = [check_keccak(gen, dev, 77), check_keccak(gen, dev, BATCH, stride=2)]
     ragged += check_pow(gen, dev, 333)
     ragged += check_curve(gen, dev, 201)
     ragged.append(check_double_chain(gen, dev, 37))
@@ -845,12 +952,14 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
     ragged.append(check_msm_small(gen, dev, 77, 2, "msm_small"))
     ragged += check_scalar_mul(gen, dev, [203])
     ragged.append(check_tree_sum(gen, dev, 7, 93))
+    ragged.append(check_tree_sum(gen, dev, 7, 93, strided=True))
     # K5a's 2-thread launch on a batch that is no multiple of its block
     ragged.append(check_add("pt_add[B=12345]", *special_points(gen, dev, 12345), plain_reps=1))
     for r in ragged:
         r["name"] += " ragged"
     rows += ragged
     torch.cuda.synchronize()
+    measure_device(rows)
     bad = [r["name"] for r in rows if r["err"] != 0]
     emit("kernels", ok=not bad, kernels=[
         dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
@@ -1337,7 +1446,7 @@ def phase_wnla(dev):
     return out, all_builds
 
 
-HAND_WRITTEN = ("f1600_kernel", "pow_kernel", "pt_add_kernel", "pt_double_chain_kernel",
+HAND_WRITTEN = ("f1600_kernel", "f1600_lane_kernel", "pow_kernel", "pt_add_kernel", "pt_double_chain_kernel",
                 "affine_rows_kernel",
                 "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
                 "msm_small_wnaf_lane_kernel", "msm_small_glv_kernel", "msm_small_glv_lane_kernel",
@@ -1421,10 +1530,10 @@ REPLACES = {
 }
 # the row of the kernels phase that stands for each kernel at the main path's shapes
 MAIN_ROW = {
-    "f1600": "f1600", "pow_const": f"pow_const[fp_sqrt B={14 * BATCH}]", "fixed_msm": "fixed_msm[F=49]",
+    "f1600": f"f1600[B={BATCH}]", "pow_const": f"pow_const[fp_sqrt B={14 * BATCH}]", "fixed_msm": "fixed_msm[F=49]",
     "msm_small_wnaf": "msm_small_wnaf[D=5]", "pt_add": "pt_add",
     "pt_double": f"pt_double[n={CHAIN_N} B=49]",
-    "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": "tree_sum[L=17]",
+    "scalar_mul": f"scalar_mul[B={32 * BATCH}]", "tree_sum": f"tree_sum[L=17 B={BATCH}]",
     "msm_small_glv": "msm_small_glv[D=3]", "msm_small": "msm_small[D=3]",
     "affine_rows": f"affine_rows[M={AFFINE_SHAPES[0][0]} NE={AFFINE_SHAPES[0][1]}]",
 }

@@ -167,7 +167,8 @@ def test_chip_smoke_drives_wnla_at_the_reference_sizes(sz):
 def test_chip_smoke_holds_k3_k6_k7_at_every_shape_the_paths_give_them(monkeypatch, sz):
     """The full run records what each launch of K3, K6 and K7 is given and
     the kernels phase adds a row for each: here the WNLA commitment's shapes
-    at this size (K6 over (1 + 2 sz) x 1024 lanes, K7 over 1 + 2 sz points)
+    at this size (K6 over (1 + 2 sz) x 1024 lanes, K7 over 1 + 2 sz points
+    of 1024 lanes)
     and its table, recorded through stand-ins for the three wrappers."""
     import inspect
     import types
@@ -195,13 +196,38 @@ def test_chip_smoke_holds_k3_k6_k7_at_every_shape_the_paths_give_them(monkeypatc
             cs.cuda_fixed_base.fixed_msm) == stand_ins
     k6, k7, k3 = cs.shape_plan(log, (known,))
     assert L * cs.BATCH in k6 and set(cs.SCALAR_MUL_LANES) <= set(k6)
-    assert L in k7 and set(cs.TREE_SUM_L) <= set(k7)
+    assert (L, cs.BATCH) in k7 and set(cs.TREE_SUM_SHAPES) <= set(k7)
     assert k3 == [(tab, f"wnla{sz}")]
     src = inspect.getsource(cs.main)
     for phase in ("verify", "mirror", "prove", "variants", "wnla"):
         assert f'recording_shapes(shapes, "{phase}")' in src
     assert "counted, shapes)" in src
     assert "shape_plan(" in inspect.getsource(cs.phase_kernels)
+
+
+def test_chip_smoke_holds_k1_at_every_lane_count_the_paths_give_it():
+    """Every permutation a transcript makes goes through `cuda_keccak.f1600`
+    (the transcript calls it through the module), where the full run's
+    record notes its lane count; the kernels phase holds K1 at each count
+    and at the verifiers' 1024 and 16384. Recorded here through the plain
+    version on the CPU."""
+    import inspect
+
+    from bppp_tpu_torch.transcript.device import Transcript
+
+    cs = _chip_smoke()
+    wrapper = cs.cuda_keccak.f1600
+    log = cs.new_shape_log()
+    with cs.recording_shapes(log, "verify"):
+        t = Transcript(b"lanes", batch=(3, 2), device="cpu")
+        t.challenge_scalar(b"c")
+    assert cs.cuda_keccak.f1600 is wrapper
+    assert log["f1600"] == {6}
+    lanes = cs.keccak_lanes_plan(log)
+    assert 6 in lanes and set(cs.KECCAK_LANES) <= set(lanes) == {6, cs.BATCH, cs.BIG_BATCH}
+    src = inspect.getsource(cs.phase_kernels)
+    assert "keccak_lanes_plan(shapes)" in src and "check_keccak(gen, dev, 77)" in src
+    assert cs.MAIN_ROW["f1600"] == f"f1600[B={cs.BATCH}]"
 
 
 def test_chip_smoke_holds_k5a_at_every_lane_count_the_paths_give_it():
