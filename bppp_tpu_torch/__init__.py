@@ -9,11 +9,15 @@ JAX package, so the counterpart of a module is found by its path:
   * Merlin/STROBE-128 transcript (bit-exact)          -> bppp_tpu_torch.transcript
   * WNLA, circuit, reciprocal, u64 verifiers          -> bppp_tpu_torch.protocol
   * ready-made instances                              -> bppp_tpu_torch.models
+  * wire blobs in, the C++ host engine's bindings     -> bppp_tpu_torch.native
+  * the single-card entry hook                        -> bppp_tpu_torch.entry
   * pure-Python host oracle (cross-check, fixtures)   -> bppp_tpu_torch.oracle
 
-Ported so far: batched u64 range-proof verification through the collapsed
-("fast") verifier. Entry points run on the GPU unless the caller passes
-`device="cpu"`; on CPU tensors the kernels' plain PyTorch versions run.
+Ported so far: everything but the scale-out layer (`parallel/`): the u64
+range proof (prover, both verifiers), the standalone WNLA and arithmetic
+circuit, Pippenger, the wire packer and the entry hook. Entry points run
+on the GPU unless the caller passes `device="cpu"`; on CPU tensors the
+kernels' plain PyTorch versions run.
 The package imports torch and numpy, never jax, and nothing of `bppp_tpu`.
 """
 

@@ -118,22 +118,28 @@ def lane_view(t: torch.Tensor, shape):
 # -- plain PyTorch versions ---------------------------------------------------
 
 
+def _stacked(op, *pairs):
+    """op over several independent pairs of equal-shaped operands in ONE
+    call on their stack (axis 1): the plain versions' independent field
+    operations share one set of eager ops. Each result is the one op(a, b)
+    would give (every field op is lane-wise)."""
+    out = op(torch.stack([a for a, _ in pairs], dim=1), torch.stack([b for _, b in pairs], dim=1))
+    return [out[:, i] for i in range(len(pairs))]
+
+
 def _double_formula(X, Y, Z):
-    """dbl-2009-l (a = 0). Complete for the identity: Z3 = 2YZ vanishes."""
-    A = f.fp_sqr(X)
-    Bb = f.fp_sqr(Y)
-    C = f.fp_sqr(Bb)
-    t = f.fp_add(X, Bb)
-    D = f.fp_sub(f.fp_sub(f.fp_sqr(t), A), C)
-    D = f.fp_add(D, D)
-    E = f.fp_add(f.fp_add(A, A), A)
-    F = f.fp_sqr(E)
+    """dbl-2009-l (a = 0). Complete for the identity: Z3 = 2YZ vanishes.
+    Independent operations run stacked (`_stacked`)."""
+    A, Bb = _stacked(f.fp_mul, (X, X), (Y, Y))
+    t, A2, Y2 = _stacked(f.fp_add, (X, Bb), (A, A), (Y, Y))
+    C, T2 = _stacked(f.fp_mul, (Bb, Bb), (t, t))
+    E = f.fp_add(A2, A)
+    F, Z3 = _stacked(f.fp_mul, (E, E), (Y2, Z))
+    u, C2 = f.fp_sub(T2, A), f.fp_add(C, C)
+    v, C4 = f.fp_sub(u, C), f.fp_add(C2, C2)
+    D, C8 = _stacked(f.fp_add, (v, v), (C4, C4))
     X3 = f.fp_sub(F, f.fp_add(D, D))
-    C8 = f.fp_add(C, C)
-    C8 = f.fp_add(C8, C8)
-    C8 = f.fp_add(C8, C8)
     Y3 = f.fp_sub(f.fp_mul(E, f.fp_sub(D, X3)), C8)
-    Z3 = f.fp_mul(f.fp_add(Y, Y), Z)
     return X3, Y3, Z3
 
 
@@ -186,21 +192,7 @@ def pt_add_plain(px, py, pz, qx, qy, qz):
     PLAIN_CALLS["pt_add"] += 1
     shape = torch.broadcast_shapes(px.shape, qx.shape)
     px, py, pz, qx, qy, qz = (c.expand(shape) for c in (px, py, pz, qx, qy, qz))
-    Z1Z1 = f.fp_sqr(pz)
-    Z2Z2 = f.fp_sqr(qz)
-    U1 = f.fp_mul(px, Z2Z2)
-    U2 = f.fp_mul(qx, Z1Z1)
-    S1 = f.fp_mul(py, f.fp_mul(qz, Z2Z2))
-    S2 = f.fp_mul(qy, f.fp_mul(pz, Z1Z1))
-    H = f.fp_sub(U2, U1)
-    r = f.fp_sub(S2, S1)
-    HH = f.fp_sqr(H)
-    HHH = f.fp_mul(H, HH)
-    V = f.fp_mul(U1, HH)
-    rr = f.fp_sqr(r)
-    X3 = f.fp_sub(f.fp_sub(rr, HHH), f.fp_add(V, V))
-    Y3 = f.fp_sub(f.fp_mul(r, f.fp_sub(V, X3)), f.fp_mul(S1, HHH))
-    Z3 = f.fp_mul(f.fp_mul(pz, qz), H)
+    X3, Y3, Z3, H, r = _add_formula(px, py, pz, qx, qy, qz)
 
     h_zero = f.fp_is_zero(H)
     r_zero = f.fp_is_zero(r)
@@ -212,7 +204,9 @@ def pt_add_plain(px, py, pz, qx, qy, qz):
         return tuple(torch.where(mask, x, y) for x, y in zip(a, b))
 
     out = (X3, Y3, Z3)
-    out = sel(neither & h_zero & r_zero, _double_formula(px, py, pz), out)
+    collide = neither & h_zero & r_zero
+    if bool(collide.any()):  # the double is selected only on such lanes
+        out = sel(collide, _double_formula(px, py, pz), out)
     zero = torch.zeros_like(px)
     one = zero.clone()
     one[0] = 1
@@ -220,6 +214,20 @@ def pt_add_plain(px, py, pz, qx, qy, qz):
     out = sel(q_id, (px, py, pz), out)
     out = sel(p_id, (qx, qy, qz), out)
     return out
+
+
+def _add_formula(px, py, pz, qx, qy, qz):
+    """add-2007-bl's generic formulas on operands of one shape ->
+    (X3, Y3, Z3, H, r); independent operations run stacked (`_stacked`)."""
+    Z1Z1, Z2Z2, PZQZ = _stacked(f.fp_mul, (pz, pz), (qz, qz), (pz, qz))
+    U1, U2, T1, T2 = _stacked(f.fp_mul, (px, Z2Z2), (qx, Z1Z1), (qz, Z2Z2), (pz, Z1Z1))
+    S1, S2 = _stacked(f.fp_mul, (py, T1), (qy, T2))
+    H, r = _stacked(f.fp_sub, (U2, U1), (S2, S1))
+    HH, rr = _stacked(f.fp_mul, (H, H), (r, r))
+    HHH, V, Z3 = _stacked(f.fp_mul, (H, HH), (U1, HH), (PZQZ, H))
+    X3 = f.fp_sub(f.fp_sub(rr, HHH), f.fp_add(V, V))
+    RV, SH = _stacked(f.fp_mul, (r, f.fp_sub(V, X3)), (S1, HHH))
+    return X3, f.fp_sub(RV, SH), Z3, H, r
 
 
 def tree_sum_plain(x, y, z):

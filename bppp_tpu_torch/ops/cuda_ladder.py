@@ -125,21 +125,7 @@ def pt_add_inc_plain(px, py, pz, qx, qy, qz):
     inverse fix-up, so p == +-q gives Z3 = 0."""
     shape = torch.broadcast_shapes(px.shape, qx.shape)
     px, py, pz, qx, qy, qz = (c.expand(shape) for c in (px, py, pz, qx, qy, qz))
-    Z1Z1 = f.fp_sqr(pz)
-    Z2Z2 = f.fp_sqr(qz)
-    U1 = f.fp_mul(px, Z2Z2)
-    U2 = f.fp_mul(qx, Z1Z1)
-    S1 = f.fp_mul(py, f.fp_mul(qz, Z2Z2))
-    S2 = f.fp_mul(qy, f.fp_mul(pz, Z1Z1))
-    H = f.fp_sub(U2, U1)
-    r = f.fp_sub(S2, S1)
-    HH = f.fp_sqr(H)
-    HHH = f.fp_mul(H, HH)
-    V = f.fp_mul(U1, HH)
-    rr = f.fp_sqr(r)
-    X3 = f.fp_sub(f.fp_sub(rr, HHH), f.fp_add(V, V))
-    Y3 = f.fp_sub(f.fp_mul(r, f.fp_sub(V, X3)), f.fp_mul(S1, HHH))
-    Z3 = f.fp_mul(f.fp_mul(pz, qz), H)
+    X3, Y3, Z3, _, _ = cuda_curve._add_formula(px, py, pz, qx, qy, qz)
     p_id = f.fp_is_zero(pz)
     q_id = f.fp_is_zero(qz)
     out = (X3, Y3, Z3)

@@ -12,8 +12,9 @@ on a CUDA tensor `pt_add`, `pt_double`, `pt_scalar_mul`, `pt_sum`, the
 small MSM, the fixed-window exponentiations and Keccak each launch their
 kernel (or raise); on a CPU tensor their plain PyTorch versions run.
 
-Left to a later slice: the bucketed Pippenger MSM, and with it the
-question which route `msm` over many points should take on this card.
+The bucketed Pippenger MSM is `ops/pippenger.py`; `msm` over more than
+`MSM_SMALL_MAX` points takes ladder + sum, and which route it should take
+on this card is for a measurement to decide (`PERF.md`).
 """
 
 from __future__ import annotations
@@ -216,9 +217,10 @@ def _tree_sum_axis1(p: PointJ) -> PointJ:
 
 def msm_straus(points: PointJ, scalars) -> PointJ:
     """Interleaved shared-window MSM (Straus): the plain eager version of
-    the MSMs, for any number of points. 4-bit windows walk ONCE for all
-    points: per window each point contributes its table entry and the L
-    selected points fold in a log tree; 256 doubles in all."""
+    the MSMs, for any number of points. 4-bit windows: per point the table
+    [0..15]P (14 complete adds), the points every window selects summed for
+    all 64 windows at once (one log tree over L), then the window sums
+    folded MSB first, 4 doubles (one K5b chain) and one add per window."""
     L = points.x.shape[1]
     shape = torch.broadcast_shapes(points.x.shape, scalars.shape)
     points = PointJ(*(c.expand(shape) for c in points))
@@ -232,15 +234,14 @@ def msm_straus(points: PointJ, scalars) -> PointJ:
         ents.append(pt_add(ents[-1], points))
     tab = PointJ(*(torch.stack(cs, dim=0) for cs in zip(*ents)))
 
-    acc = identity(batch, device=dev)
-    for w in range(63, -1, -1):
-        digit = (scalars[w // 4] >> (4 * (w % 4))) & 15  # (L, *batch)
-        if w != 63:
-            for _ in range(4):
-                acc = pt_double(acc)
-        idx = digit[None, None].expand((1, 16, L) + batch)
-        sel = PointJ(*(torch.gather(c, 0, idx)[0] for c in tab))
-        acc = pt_add(acc, _tree_sum_axis1(sel))
+    digits = torch.stack([(scalars[w // 4] >> (4 * (w % 4))) & 15 for w in range(64)])
+    idx = digits[:, None].expand((64, 16, L) + batch)
+    sel = PointJ(*(torch.gather(c, 0, idx).movedim(0, 2) for c in tab))  # (16, L, 64, *batch)
+    wins = _tree_sum_axis1(sel)  # (16, 64, *batch): window w's sum
+    acc = PointJ(*(c[:, 63] for c in wins))
+    for w in range(62, -1, -1):
+        acc = PointJ(*(c[:, 3] for c in cuda_curve.pt_double_chain(*acc, 4)))
+        acc = pt_add(acc, PointJ(*(c[:, w] for c in wins)))
     return acc
 
 

@@ -132,23 +132,28 @@ def wnla_dev_to_bytes(proof):
     )
 
 
+def circuit_proofs_to_bytes(proofs, device="cuda"):
+    """One oracle CircuitProof per lane -> CircuitProofBytes on `device`."""
+    from .circuit import CircuitProofBytes
+
+    up = lambda a: torch.from_numpy(a).to(device)
+    return CircuitProofBytes(
+        c_l=up(point_bytes([p.c_l for p in proofs])),
+        c_r=up(point_bytes([p.c_r for p in proofs])),
+        c_o=up(point_bytes([p.c_o for p in proofs])),
+        c_s=up(point_bytes([p.c_s for p in proofs])),
+        wnla=wnla_proofs_to_bytes(proofs, device=device),
+    )
+
+
 def reciprocal_proofs_to_bytes(proofs, device="cuda"):
     """One oracle ReciprocalProof per lane -> ReciprocalProofBytes on
     `device`."""
-    from .circuit import CircuitProofBytes
     from .reciprocal import ReciprocalProofBytes
 
-    cps = [p.circuit_proof for p in proofs]
-    up = lambda a: torch.from_numpy(a).to(device)
     return ReciprocalProofBytes(
-        circuit=CircuitProofBytes(
-            c_l=up(point_bytes([p.c_l for p in cps])),
-            c_r=up(point_bytes([p.c_r for p in cps])),
-            c_o=up(point_bytes([p.c_o for p in cps])),
-            c_s=up(point_bytes([p.c_s for p in cps])),
-            wnla=wnla_proofs_to_bytes(cps, device=device),
-        ),
-        r=up(point_bytes([p.r for p in proofs])),
+        circuit=circuit_proofs_to_bytes([p.circuit_proof for p in proofs], device=device),
+        r=torch.from_numpy(point_bytes([p.r for p in proofs])).to(device),
     )
 
 
@@ -178,24 +183,80 @@ def reciprocal_dev_to_oracle(proof, b):
     )
 
 
-def reciprocal_dev_to_bytes(proof):
-    """ReciprocalProofDev -> ReciprocalProofBytes on the proof's device:
-    the five single points compress in one stacked call, the WNLA X/R in
-    another, so a proof goes from the prover to the verifier without a
-    host round trip."""
+def _circuit_dev_to_bytes(cp, *more):
+    """CircuitProofDev (and `more` single points) -> (CircuitProofBytes,
+    [bytes of each of `more`]): the circuit's four points and `more`
+    compress in one stacked call, the WNLA X / R in another, so a proof goes
+    from the prover to the verifier without a host round trip."""
     from .circuit import CircuitProofBytes
+
+    singles = (cp.c_l, cp.c_r, cp.c_o, cp.c_s) + more
+    byts = dc.compress(dc.PointJ(*(torch.stack(cs, dim=1) for cs in zip(*singles))))
+    return CircuitProofBytes(
+        c_l=byts[:, 0], c_r=byts[:, 1], c_o=byts[:, 2], c_s=byts[:, 3],
+        wnla=wnla_dev_to_bytes(cp.wnla),
+    ), [byts[:, 4 + i] for i in range(len(more))]
+
+
+def circuit_dev_to_bytes(proof):
+    """CircuitProofDev -> CircuitProofBytes on the proof's device."""
+    return _circuit_dev_to_bytes(proof)[0]
+
+
+def reciprocal_dev_to_bytes(proof):
+    """ReciprocalProofDev -> ReciprocalProofBytes on the proof's device (the
+    poles commitment compresses with the circuit's four points)."""
     from .reciprocal import ReciprocalProofBytes
 
-    cp = proof.circuit
-    five = dc.compress(
-        dc.PointJ(*(torch.stack(cs, dim=1) for cs in zip(cp.c_l, cp.c_r, cp.c_o, cp.c_s, proof.r)))
-    )
-    return ReciprocalProofBytes(
-        circuit=CircuitProofBytes(
-            c_l=five[:, 0], c_r=five[:, 1], c_o=five[:, 2], c_s=five[:, 3],
-            wnla=wnla_dev_to_bytes(cp.wnla),
-        ),
-        r=five[:, 4],
+    circuit, (r,) = _circuit_dev_to_bytes(proof.circuit, proof.r)
+    return ReciprocalProofBytes(circuit=circuit, r=r)
+
+
+# -- instance lifting ------------------------------------------------------
+
+
+def matrix_const(rows: list[list[int]], B: int, device="cuda"):
+    """Host int matrix -> (16, R, C, B) limbs on `device`, broadcast over
+    the B lanes (an `expand` view)."""
+    R, C = len(rows), len(rows[0])
+    limbs = f.ints_to_limbs([v for row in rows for v in row]).reshape(16, R, C, 1)
+    return torch.from_numpy(limbs).to(device).expand(16, R, C, B)
+
+
+def vector_const(vals: list[int], B: int, device="cuda"):
+    """Host int vector -> (16, L, B) limbs on `device`, broadcast over the
+    B lanes (an `expand` view)."""
+    limbs = f.ints_to_limbs(list(vals)).reshape(16, len(vals), 1)
+    return torch.from_numpy(limbs).to(device).expand(16, len(vals), B)
+
+
+def circuit_from_oracle(circ, B: int, device="cuda", tables=None):
+    """Lift an oracle ArithmeticCircuit instance (static W / a data) into an
+    ArithmeticCircuitDevice over a B-lane batch on `device`. `tables`: the
+    fixed-base window tables over its generators, {'full': [g | h_vec +
+    h_vec_ | g_vec + g_vec_], 'gv': [g | g_vec]}, or None."""
+    from .circuit import ArithmeticCircuitDevice
+
+    return ArithmeticCircuitDevice(
+        dim_nm=circ.dim_nm,
+        dim_no=circ.dim_no,
+        k=circ.k,
+        dim_nl=circ.dim_nl,
+        dim_nv=circ.dim_nv,
+        dim_nw=circ.dim_nw,
+        g=point_batched(circ.g, B, device=device),
+        g_vec=points_batched(circ.g_vec, B, device=device),
+        h_vec=points_batched(circ.h_vec, B, device=device),
+        W_m=matrix_const(circ.W_m, B, device=device),
+        W_l=matrix_const(circ.W_l, B, device=device),
+        a_m=vector_const(circ.a_m, B, device=device),
+        a_l=vector_const(circ.a_l, B, device=device),
+        f_l=circ.f_l,
+        f_m=circ.f_m,
+        g_vec_=points_batched(circ.g_vec_, B, device=device),
+        h_vec_=points_batched(circ.h_vec_, B, device=device),
+        partition=circ.partition,
+        tables=tables,
     )
 
 

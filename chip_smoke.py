@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --kernels-only
-    python3 chip_smoke.py --profile [--path verify|mirror|prove|verify_glv|...]
+    python3 chip_smoke.py --profile [--path verify|mirror|prove|verify_glv|...|circuit_ac|
+                                     circuit_reciprocal|wire|pippenger]
                                      # where one batch of that path spends its time
 
 Builds the CUDA kernels of `bppp_tpu_torch/csrc/` from source, holds each
@@ -26,15 +27,36 @@ and drives the port's paths at a batch of 1024 u64 range proofs:
   wnla    the standalone weight-norm linear argument at |l| = |n| = 16,
           32 and 64: commit + prove with the distinct lanes' bytes equal to
           the oracle's, both verifiers on honest and tampered proofs; each
-          table build timed, one K5b launch each.
+          table build timed, one K5b launch each;
+  circuit the standalone arithmetic circuit on its generic dense path:
+          ac_works without tables and the reciprocal-decomposition circuit
+          at the u64 dims with the u64 tables, 4 distinct witnesses tiled
+          over the batch; prove bytes equal the oracle's, both verifiers
+          accept the honest lanes and reject a tampered C_S and a tampered
+          WNLA scalar;
+  wire    the verify phase's proofs as 525-byte blobs, tampered in their
+          bytes as the verify phase tampers its tensors, through
+          `native.pack_batch` into both u64 verifiers; the packed tensors
+          equal the verify phase's, the masks the expected one; the C++
+          host engine's `u64_verify` timed on 16 blobs as a host baseline;
+  entry   `bppp_tpu_torch.entry.entry()`: its step rejects every lane of
+          its zero arguments and gives the wire mask on the wire arguments;
+  pippenger  `ops.pippenger.msm_pippenger` against `curve.msm` (ladder +
+          tree) at 33, 65 and 129 points per lane (the WNLA-16/32/64 final
+          MSMs) over the batch, with an identity point, a zero scalar, a
+          repeated point and a point beside its negation; equal as points on
+          every lane, both routes timed in turns (their device times in the
+          kernels phase's profiler session, a `pippenger_device` line); K7
+          (incomplete adds) never launched by Pippenger.
 
 For each path it checks that every kernel of that path was launched and
 that no plain version was. The kernel comparison comes after the paths,
 at the u64 path's shapes and at every shape the paths gave K1 (each lane
-count), K3 (each table and row subset), K5a and K6 (each lane count) and
-K7 (each point count and lane count), which are recorded as the paths
-run. Every phase prints one JSON line; any mismatch or exception ends the
-run with a non-zero exit code. There is no CPU route: without a CUDA
+count), K3 (each table and row subset), K5a and K6 (each lane count), K5b
+(each lane count and chain length) and K7 (each point count and lane
+count), which are recorded as the paths run. Every phase prints one JSON
+line, and a `walls` line each phase's seconds; any mismatch or exception
+ends the run with a non-zero exit code. There is no CPU route: without a CUDA
 device the script fails.
 
 Bounds (`bound_ms`) are the least time the card could take for the same
@@ -65,12 +87,15 @@ import time
 import numpy as np
 import torch
 
-from bppp_tpu_torch.models import u64_fixture, u64_prove_batch, wnla_fixture
+from bppp_tpu_torch import native
+from bppp_tpu_torch.entry import entry
+from bppp_tpu_torch.models import circuit_fixture, u64_fixture, u64_prove_batch, wnla_fixture
 from bppp_tpu_torch.ops import _build
 from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_ladder, cuda_msm
 from bppp_tpu_torch.ops import curve as dc
 from bppp_tpu_torch.ops import field as f
 from bppp_tpu_torch.ops import glv
+from bppp_tpu_torch.ops import pippenger
 from bppp_tpu_torch.oracle import curve as oc
 from bppp_tpu_torch.oracle.field import N as N_INT
 from bppp_tpu_torch.oracle.field import P as P_INT
@@ -149,6 +174,25 @@ TAMPERED = 5  # the lane whose WNLA proof the wnla phase tampers
 for _sz in WNLA_SIZES:
     PATH_KERNELS[f"wnla{_sz}"] = ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
                                   "scalar_mul", "tree_sum")
+# the standalone circuit (fixture with its table build, prove, both
+# verifiers): ac_works without tables (Straus MSMs: K5a adds and K5b
+# doubles; the WNLA mirror's folds over more than 6 points: K6 + K7), the
+# reciprocal circuit with the u64 tables (built by its fixture)
+PATH_KERNELS["circuit_ac"] = ("f1600", "pow_const", "msm_small_wnaf", "pt_add", "pt_double",
+                              "scalar_mul", "tree_sum")
+PATH_KERNELS["circuit_reciprocal"] = PATH_KERNELS["verify"] + ("scalar_mul", "tree_sum")
+# wire blobs into both u64 verifiers (the verify phase's instance and tables)
+PATH_KERNELS["wire"] = ("f1600", "pow_const", "fixed_msm", "msm_small_wnaf", "pt_add",
+                        "scalar_mul", "tree_sum")
+# the entry hook: its own u64 fixture (one table build) and fast verify steps
+PATH_KERNELS["entry"] = PATH_KERNELS["verify"]
+# Pippenger: complete adds and the windows' doubling chain, never the
+# ladder or the sum with incomplete adds
+PATH_KERNELS["pippenger"] = ("pt_add", "pt_double")
+PATH_BANNED["pippenger"] = ("tree_sum", "scalar_mul")
+PIPPENGER_L = (33, 65, 129)
+# the lanes the circuit phase tampers: C_S, and the first WNLA scalar
+CIRCUIT_TAMPERED = {"c_s": 5, "wnla.l": 6}
 
 
 def emit(phase: str, **kw) -> None:
@@ -788,18 +832,19 @@ ADD_LANES = (32 * 49 * 128,)
 
 def new_shape_log() -> dict:
     return {"scalar_mul": set(), "tree_sum": set(), "fixed_msm": {}, "pt_add": set(),
-            "f1600": set(), "table_builds": []}
+            "f1600": set(), "pt_double": set(), "table_builds": [], "timed_calls": []}
 
 
 @contextlib.contextmanager
 def recording_shapes(log: dict, where: str):
-    """For the block, note what each launch of K1, K3, K5a, K6 and K7 is
-    given, so the kernels phase holds each of them at every shape a path
-    gave it: K1's, K5a's and K6's lane counts, K7's (point count L, lane
-    count) pairs, and every table or row subset K3 walked (by identity,
-    with the phase `where` it was first met in)."""
+    """For the block, note what each launch of K1, K3, K5a, K5b, K6 and K7
+    is given, so the kernels phase holds each of them at every shape a path
+    gave it: K1's, K5a's and K6's lane counts, K5b's (lane count, doubles)
+    pairs, K7's (point count L, lane count) pairs, and every table or row
+    subset K3 walked (by identity, with the phase `where` it was first met
+    in)."""
     orig = (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-            cuda_curve.pt_add, cuda_keccak.f1600)
+            cuda_curve.pt_add, cuda_keccak.f1600, cuda_curve.pt_double, cuda_curve.pt_double_chain)
 
     def scalar_mul(px, py, pz, k):
         log["scalar_mul"].add(torch.broadcast_shapes(px.shape, k.shape)[1:].numel())
@@ -821,13 +866,23 @@ def recording_shapes(log: dict, where: str):
         log["f1600"].add(state.shape[1:].numel())
         return orig[4](state)
 
+    def pt_double(X, Y, Z):
+        log["pt_double"].add((X.shape[1:].numel(), 1))
+        return orig[5](X, Y, Z)
+
+    def pt_double_chain(X, Y, Z, n):
+        log["pt_double"].add((X.shape[1:].numel(), n))
+        return orig[6](X, Y, Z, n)
+
     (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-     cuda_curve.pt_add, cuda_keccak.f1600) = scalar_mul, tree_sum, fixed_msm, pt_add, f1600
+     cuda_curve.pt_add, cuda_keccak.f1600, cuda_curve.pt_double, cuda_curve.pt_double_chain) = (
+        scalar_mul, tree_sum, fixed_msm, pt_add, f1600, pt_double, pt_double_chain)
     try:
         yield log
     finally:
         (cuda_ladder.scalar_mul, cuda_ladder.tree_sum, cuda_fixed_base.fixed_msm,
-         cuda_curve.pt_add, cuda_keccak.f1600) = orig
+         cuda_curve.pt_add, cuda_keccak.f1600, cuda_curve.pt_double,
+         cuda_curve.pt_double_chain) = orig
 
 
 def shape_plan(log, known_tables=()):
@@ -855,12 +910,14 @@ def add_lanes_plan(log):
 
 
 def table_build_plan(log):
-    """What the kernels phase holds the table build's kernels at: the
-    fixed shapes and every one that the table builds in `log` (each as
-    `timing_table_builds` notes it) gave them. -> (K5b chain (lanes,
-    doubles), affine_rows (rows, entries))."""
-    builds = (log or new_shape_log())["table_builds"]
-    return (sorted({(F, CHAIN_N) for F in CHAIN_LANES}
+    """What the kernels phase holds K5b and the table build's affine step
+    at: the fixed shapes, every one that the table builds in `log` (each as
+    `timing_table_builds` notes it) gave them, and K5b's other launches on
+    the paths (Pippenger's window doubles, the Straus MSMs' doubles). ->
+    (K5b chain (lanes, doubles), affine_rows (rows, entries))."""
+    log = log or new_shape_log()
+    builds = log["table_builds"]
+    return (sorted({(F, CHAIN_N) for F in CHAIN_LANES} | set(log.get("pt_double", ()))
                    | {tuple(s) for b in builds for s in b["chain"]}),
             sorted(set(AFFINE_SHAPES) | {tuple(s) for b in builds for s in b["affine"]}))
 
@@ -959,7 +1016,10 @@ def phase_kernels(dev, tables, launches=None, shapes=None):
         r["name"] += " ragged"
     rows += ragged
     torch.cuda.synchronize()
-    measure_device(rows)
+    # the paths' own calls timed on the card in the same profiler session
+    # (Pippenger's and ladder + sum's): one session per process records
+    # reliably, a second one did not
+    measure_device(rows + (shapes or {}).get("timed_calls", []))
     bad = [r["name"] for r in rows if r["err"] != 0]
     emit("kernels", ok=not bad, kernels=[
         dict(name=r["name"], shape=r["shape"], ok=r["err"] == 0, max_abs_err=r["err"],
@@ -1033,9 +1093,9 @@ def fail_on_table_builds(where: str, builds: list) -> None:
                          "affine_rows once each")
 
 
-def make_batch(public, rng, B, dev):
-    """Oracle proofs for four values tiled over B lanes, with a few lanes
-    tampered. -> (commitment bytes, proof, expected mask, oracle report)."""
+def oracle_proofs(public, rng):
+    """Oracle proofs of four values, each checked by the oracle's verifier.
+    -> (commitments, proofs)."""
     xs = [0, 123456, 0xDEADBEEFCAFEBABE, 2**64 - 1]
     coms, proofs = [], []
     for x in xs:
@@ -1045,6 +1105,15 @@ def make_batch(public, rng, B, dev):
         assert public.verify(com, proof, HostTranscript(LABEL)), "oracle rejects its own proof"
         coms.append(com)
         proofs.append(proof)
+    return coms, proofs
+
+
+def make_batch(public, distinct, B, dev):
+    """The oracle proofs of four values (`distinct`: (commitments, proofs)
+    from `oracle_proofs`) tiled over B lanes, with a few lanes tampered
+    (`wire_blobs` does the same to wire blobs). -> (commitment bytes,
+    proof, expected mask, oracle report)."""
+    coms, proofs = distinct
     pb4 = cv.reciprocal_proofs_to_bytes(proofs, device="cpu")
     cb4 = torch.from_numpy(cv.point_bytes(coms))
     reps = -(-B // 4)
@@ -1143,7 +1212,8 @@ def phase_verify(dev):
         public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
     torch.cuda.synchronize()
     setup_s = time.time() - t0
-    cb, pb, want, oracle = make_batch(public, rng, BATCH, dev)
+    distinct = oracle_proofs(public, rng)
+    cb, pb, want, oracle = make_batch(public, distinct, BATCH, dev)
 
     ok = run_verify(device_obj, cb, pb, fast=True)
     torch.cuda.synchronize()
@@ -1182,7 +1252,7 @@ def phase_verify(dev):
     fail_on_counts("verify", launches, missing, plain_used)
     fail_on_table_builds("verify", builds)
     ctx = dict(public=public, device_obj=device_obj, rng=rng, cb=cb, pb=pb, want=want, fast_mask=got,
-               table_builds=builds)
+               table_builds=builds, distinct=distinct)
     return launches, ctx
 
 
@@ -1446,6 +1516,254 @@ def phase_wnla(dev):
     return out, all_builds
 
 
+# -- phase: circuit ---------------------------------------------------------------------
+
+
+def circuit_bytes_equal(pb, want, n: int) -> list:
+    """Names of the fields of two CircuitProofBytes whose lanes differ, `want`
+    holding the n distinct lanes that `pb`'s lanes tile."""
+    tiled = _map_tensors(want, lambda a: a.repeat((1,) * (a.ndim - 1) + (-(-BATCH // n),))
+                         [..., :BATCH])
+    return proof_lanes_equal(pb, tiled, BATCH)
+
+
+def phase_circuit(dev):
+    """The standalone arithmetic circuit over a batch of 1024 on the generic
+    dense path: ac_works without tables, the reciprocal-decomposition
+    circuit at the u64 dims with the u64 tables; prove under replayed
+    draws (bytes of every lane equal the oracle's proof of its distinct
+    lane), both verifiers on the produced proofs with one lane's C_S and
+    another's first WNLA scalar tampered. -> ({path: launches}, the
+    fixtures' table builds)."""
+    out, all_builds = {}, []
+    for kind, tables in (("ac", "never"), ("reciprocal", "auto")):
+        path = f"circuit_{kind}"
+        reset_counts()
+        t0 = time.time()
+        builds = []
+        with timing_table_builds(builds):
+            fx = circuit_fixture(kind, BATCH, device=dev, tables=tables)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        n = len(fx.lanes)
+        for ln in fx.lanes:
+            assert fx.circuit.verify(ln["v"], HostTranscript(fx.label), ln["proof"]), \
+                f"{kind}: the oracle rejects its own proof"
+
+        def transcript():
+            return Transcript(fx.label, batch=(BATCH,), device=dev)
+
+        def prove():
+            return fx.dev.prove(fx.v, fx.v_bytes, fx.witness, transcript(), fx.blind)
+
+        def verify(pb, fast):
+            return fx.dev.verify(fx.v, fx.v_bytes, transcript(), pb, fast=fast)
+
+        proof = prove()
+        pb = cv.circuit_dev_to_bytes(proof)
+        c_s, wl = pb.c_s.clone(), pb.wnla.l.clone()
+        c_s[1, CIRCUIT_TAMPERED["c_s"]] ^= 1
+        lane = CIRCUIT_TAMPERED["wnla.l"]
+        wl[0, 0, lane] = (wl[0, 0, lane] + 1) % (1 << 16)
+        tampered = pb._replace(c_s=c_s, wnla=pb.wnla._replace(l=wl))
+        want = torch.ones(BATCH, dtype=torch.bool)
+        want[list(CIRCUIT_TAMPERED.values())] = False
+        masks = {f"{name}{'_tampered' if t else ''}": verify(tampered if t else pb, fast).cpu()
+                 for name, fast in (("fast", True), ("mirror", False)) for t in (False, True)}
+        torch.cuda.synchronize()
+        out[path], missing, plain_used = path_counts(path)
+        differing = circuit_bytes_equal(
+            pb, cv.circuit_proofs_to_bytes([ln["proof"] for ln in fx.lanes], device="cpu"), n)
+        wrong = {k: torch.nonzero(m != (want if "tampered" in k else True)).flatten().tolist()
+                 for k, m in masks.items()}
+        wrong = {k: v for k, v in wrong.items() if v}
+        ms_prove = time_ms(prove, reps=3)
+        ms_fast = time_ms(lambda: verify(pb, True), reps=3)
+        ms_mirror = time_ms(lambda: verify(pb, False), reps=3)
+        d = fx.dev
+        emit("circuit", ok=not differing and not wrong and not missing and not plain_used,
+             instance=kind, dims=dict(nm=d.dim_nm, no=d.dim_no, nv=d.dim_nv, nl=d.dim_nl,
+                                      nw=d.dim_nw, k=d.k, g_vec_=int(d.g_vec_.x.shape[1]),
+                                      h_vec_=int(d.h_vec_.x.shape[1])),
+             generic_collect_c=d.collect_c_override is None, tables=d.tables is not None,
+             batch=BATCH, distinct_lanes=n, fields_differing_from_oracle=differing,
+             wrong_lanes=wrong, tampered_lanes=CIRCUIT_TAMPERED, launches=out[path],
+             plain_calls=plain_used, fixture_seconds=setup_s, table_builds=builds,
+             ms_per_batch_prove=ms_prove, ms_per_batch_verify_fast=ms_fast,
+             ms_per_batch_verify_mirror=ms_mirror)
+        if differing:
+            raise SystemExit(f"circuit {kind}: proof bytes differ from the oracle's in {differing}")
+        if wrong:
+            raise SystemExit(f"circuit {kind}: masks wrong at {wrong}")
+        fail_on_counts(path, out[path], missing, plain_used)
+        if tables != "never":
+            fail_on_table_builds(path, builds)
+        all_builds += builds
+    return out, all_builds
+
+
+# -- phases: wire, entry ---------------------------------------------------------------
+
+
+def wire_blobs(proofs, B: int) -> list:
+    """The verify phase's batch as 525-byte wire blobs: the four oracle
+    proofs packed by `native.pack_oracle_proof`, tiled over B lanes, and
+    lanes 4, 5, 7, 8, 9 and 10 tampered in their bytes as `make_batch`
+    tampers its tensors (lane 6's fault is its commitment, not its blob)."""
+    P, SC = 33, native.N_POINTS * 33  # a point's bytes; where the scalars start
+    blobs = [bytearray(native.pack_oracle_proof(proofs[b % 4])) for b in range(B)]
+    blobs[4][4 * P + 5] ^= 0x40  # byte 5 of the poles commitment R
+    limb0 = (blobs[5][SC + 30] << 8 | blobs[5][SC + 31]) + 1  # limb 0 of l[0]
+    blobs[5][SC + 30:SC + 32] = (limb0 % (1 << 16)).to_bytes(2, "big")
+    blobs[7][3 * P] = 7  # C_S's SEC1 tag
+    blobs[8][SC + 64:SC + 96] = (N_INT + 5).to_bytes(32, "big")  # n[0] >= n
+    blobs[9][7 * P + 3] ^= 0x11  # byte 3 of X[2]
+    blobs[10][4 * P:5 * P] = bytes([2]) + b"\xff" * 32  # R's x >= p
+    return [bytes(b) for b in blobs]
+
+
+def phase_wire(dev, ctx):
+    """The verify phase's proofs as wire blobs through `native.pack_batch`
+    into both u64 verifiers: the packed tensors equal the verify phase's,
+    the masks the expected one. The C++ host engine's verifier on 16 blobs
+    as a host baseline."""
+    device_obj, cb, want = ctx["device_obj"], ctx["cb"], ctx["want"]
+    blobs = wire_blobs(ctx["distinct"][1], BATCH)
+    reset_counts()
+    pb, pack_ms = timed_once(lambda: native.pack_batch(blobs, device=dev))
+    masks = {"fast": run_verify(device_obj, cb, pb, fast=True).cpu(),
+             "mirror": run_verify(device_obj, cb, pb, fast=False).cpu()}
+    torch.cuda.synchronize()
+    launches, missing, plain_used = path_counts("wire")
+    differing = proof_lanes_equal(pb, ctx["pb"], BATCH)
+    wrong = {k: torch.nonzero(m != want).flatten().tolist() for k, m in masks.items()}
+    wrong = {k: v for k, v in wrong.items() if v}
+    ms_pack = time_ms(lambda: native.pack_batch(blobs, device=dev), reps=5)
+    # the host engine: one blob at a time on one core
+    public, n_host = ctx["public"], 16
+    com_bytes = [bytes(cb[:, b].cpu().to(torch.uint8).tolist()) for b in range(n_host)]
+    native.load()
+    t0 = time.perf_counter()
+    host = [native.u64_verify(public, com_bytes[b], LABEL, blobs[b]) for b in range(n_host)]
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_host
+    host_wrong = [b for b in range(n_host) if host[b] != bool(want[b])]
+    emit("wire", ok=not differing and not wrong and not host_wrong and not missing
+         and not plain_used, batch=BATCH, blob_bytes=native.PROOF_BYTES,
+         fields_differing_from_verify_phase=differing, wrong_lanes=wrong,
+         rejected_lanes=torch.nonzero(~masks["fast"]).flatten().tolist(), launches=launches,
+         plain_calls=plain_used, ms_pack_batch_first=pack_ms, ms_pack_batch=ms_pack,
+         host_engine=dict(blobs=n_host, ms_per_verify=host_ms, wrong_lanes=host_wrong,
+                          library=native.lib_path()))
+    if differing:
+        raise SystemExit(f"pack_batch differs from the verify phase's tensors in {differing}")
+    if wrong or host_wrong:
+        raise SystemExit(f"wire masks wrong at {wrong}, host engine at {host_wrong}")
+    fail_on_counts("wire", launches, missing, plain_used)
+    ctx.update(wire_pb=pb, wire_mask=masks["fast"])
+    return launches
+
+
+def phase_entry(dev, ctx):
+    """`entry()` on the card: its step on its zero arguments rejects every
+    lane; the same step on the wire phase's arguments (the verify phase's
+    instance, commitments and packed blobs) gives the wire mask."""
+    reset_counts()
+    t0 = time.time()
+    builds = []
+    with timing_table_builds(builds):
+        step, args = entry(device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    zero_mask = step(*args).cpu()
+    wire_args = (ctx["device_obj"], ctx["cb"], ctx["wire_pb"])
+    wire_mask = step(*wire_args).cpu()
+    torch.cuda.synchronize()
+    launches, missing, plain_used = path_counts("entry")
+    ok_zero = tuple(zero_mask.shape) == (BATCH,) and not bool(zero_mask.any())
+    same = torch.equal(wire_mask, ctx["wire_mask"])
+    ms = time_ms(lambda: step(*wire_args), reps=5)
+    emit("entry", ok=ok_zero and same and not missing and not plain_used, batch=BATCH,
+         zero_args_all_rejected=ok_zero, wire_mask_equal=same, launches=launches,
+         plain_calls=plain_used, setup_seconds=setup_s, table_builds=builds,
+         ms_per_step=ms)
+    if not (ok_zero and same):
+        raise SystemExit(f"entry: zero arguments all rejected {ok_zero}, wire mask equal {same}")
+    fail_on_counts("entry", launches, missing, plain_used)
+    fail_on_table_builds("entry", builds)
+    return launches, builds
+
+
+# -- phase: pippenger --------------------------------------------------------------------
+
+
+def pippenger_inputs(gen, L: int, dev):
+    """L random points and scalars on each of BATCH lanes; lane 0 has an
+    identity point, lane 1 a zero scalar, lane 2 one point three times
+    (other scalars: equal digits meet in the sorted scan), lane 3 a point
+    and its negation under one scalar (equal digits everywhere: the scan
+    adds P to -P). Two equal points under one scalar would make ladder +
+    sum, whose sum adds with incomplete adds (K7), wrong on that lane."""
+    P = rand_points(gen, (L, BATCH), dev)
+    S = rand_scalars(gen, (L, BATCH), N_INT, dev)
+    idl = dc.identity((), device=dev)
+    for a, i in zip(P, idl):
+        a[:, 1, 0] = i
+        a[:, 4, 2] = a[:, 3, 2]
+        a[:, 5, 2] = a[:, 3, 2]
+        a[:, 6, 3] = a[:, 7, 3]
+    P.y[:, 6, 3] = f.fp_neg(P.y[:, 7, 3])
+    S[:, 2, 1] = 0
+    S[:, 6, 3] = S[:, 7, 3]
+    return P, S
+
+
+def phase_pippenger(dev):
+    """`msm_pippenger` against `curve.msm` (K6 ladder + K7 sum) at the WNLA
+    final MSMs' point counts over a batch of 1024: equal as points on every
+    lane (and to the host oracle on the four edge lanes); launches and
+    times of both routes, timed in turns. -> {path: launches}."""
+    gen = np.random.default_rng(99)
+    report, failures, counted, fns = [], [], None, []
+    for L in PIPPENGER_L:
+        P, S = pippenger_inputs(gen, L, dev)
+        reset_counts()
+        got = pippenger.msm_pippenger(P, S)
+        torch.cuda.synchronize()
+        launches, missing, plain_used = path_counts("pippenger")
+        faults = count_faults("pippenger", launches, missing, plain_used)
+        reset_counts()
+        ref = dc.msm(P, S)
+        torch.cuda.synchronize()
+        msm_launches, _ = read_counts()
+        bad = torch.nonzero(~dc.pt_eq(got, ref)).flatten().tolist()
+        host = []
+        for b in range(4):
+            acc = oc.IDENTITY
+            for p, k in zip(cv.point_vec_lane(P, b), cv.scalars_lane(S, b)):
+                acc = acc.add(p.mul(k))
+            host.append(cv.point_lane(got, b).to_bytes() == acc.to_bytes())
+        fns += [lambda P=P, S=S: pippenger.msm_pippenger(P, S), lambda P=P, S=S: dc.msm(P, S)]
+        turns = [time_ms(fn, reps=3) for fn in (fns[-2], fns[-1], fns[-1], fns[-2])]
+        report.append(dict(
+            L=L, c=pippenger._pick_c(L), lanes=BATCH, lanes_differing_from_msm=bad, oracle_edge_lanes=host,
+            launches=launches, msm_launches={k: v for k, v in msm_launches.items() if v},
+            ms=(turns[0] + turns[3]) / 2, msm_ms=(turns[1] + turns[2]) / 2))
+        if bad or not all(host):
+            failures.append(f"L={L}: differs from msm at lanes {bad[:20]}, oracle edge lanes {host}")
+        failures += faults
+        counted = launches if counted is None else {k: counted[k] + launches[k] for k in counted}
+    emit("pippenger", ok=not failures, batch=BATCH, route_of_msm="ladder + tree (unchanged)",
+         sizes=report)
+    if failures:
+        raise SystemExit("; ".join(failures))
+    # the hand-written kernels' device time of both routes at every size is
+    # taken in the kernels phase's profiler session (`timed_calls`)
+    timed = [dict(L=L, route=route, device_fn=fn)
+             for L, pair in zip(PIPPENGER_L, zip(fns[0::2], fns[1::2]))
+             for route, fn in zip(("pippenger", "ladder + sum"), pair)]
+    return {"pippenger": counted}, timed
+
+
 HAND_WRITTEN = ("f1600_kernel", "f1600_lane_kernel", "pow_kernel", "pt_add_kernel", "pt_double_chain_kernel",
                 "affine_rows_kernel",
                 "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
@@ -1457,12 +1775,32 @@ HAND_WRITTEN = ("f1600_kernel", "f1600_lane_kernel", "pow_kernel", "pt_add_kerne
 def phase_profile(dev, path: str):
     """One batch of 1024 of `path` under torch.profiler: the device's busy
     and idle share, the number of launches, and the device time by kernel.
-    A variant path ("verify_glv", ...) runs under its switch, set by the caller."""
+    A variant path ("verify_glv", ...) runs under its switch, set by the
+    caller. The circuit paths profile one prove, "wire" one `pack_batch` and
+    fast verify, "pippenger" one MSM over PIPPENGER_L[-1] points."""
     from torch.profiler import ProfilerActivity, profile
 
     base = path.partition("_")[0]
-    public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
-    cb, pb, want, _ = make_batch(public, rng, BATCH, dev)
+    if base == "circuit":
+        kind = path.partition("_")[2]
+        fx = circuit_fixture(kind, BATCH, device=dev, tables="never" if kind == "ac" else "auto")
+
+        def run():
+            return fx.dev.prove(fx.v, fx.v_bytes, fx.witness,
+                                Transcript(fx.label, batch=(BATCH,), device=dev), fx.blind)
+
+        run()
+    elif base == "pippenger":
+        P, S = pippenger_inputs(np.random.default_rng(99), PIPPENGER_L[-1], dev)
+
+        def run():
+            return pippenger.msm_pippenger(P, S)
+
+        run()
+    else:
+        public, device_obj, rng = u64_fixture(SEED, BATCH, device=dev, tables="auto")
+        distinct = oracle_proofs(public, rng)
+        cb, pb, want, _ = make_batch(public, distinct, BATCH, dev)
     if base == "prove":
         pbt = make_prove_batch(rng, dev)
 
@@ -1472,9 +1810,12 @@ def phase_profile(dev, path: str):
                 pbt.x_words, pbt.s, Transcript(LABEL, batch=(BATCH,), device=dev), pbt.blind)
 
         run()
-    else:
+    elif base in ("verify", "mirror", "wire"):
+        blobs = wire_blobs(distinct[1], BATCH) if base == "wire" else None
+
         def run():
-            return run_verify(device_obj, cb, pb, fast=base == "verify")
+            got = pb if blobs is None else native.pack_batch(blobs, device=dev)
+            return run_verify(device_obj, cb, got, fast=base != "mirror")
 
         assert run().cpu().tolist() == want.tolist()
     torch.cuda.synchronize()
@@ -1549,9 +1890,11 @@ def main() -> int:
                     "the shapes the paths give K3, K5a, K6 and K7 are recorded only by a full run)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch of --path instead of the smoke phases")
-    ap.add_argument("--path", choices=[p for p in PATH_KERNELS if not p.startswith("wnla")],
+    ap.add_argument("--path", choices=[p for p in PATH_KERNELS if not p.startswith(("wnla", "entry"))],
                     default="verify", help="the path --profile runs (default: verify; "
-                    "verify_glv etc. under BPPP_WNAF=0, verify_noglv etc. under BPPP_GLV=0)")
+                    "verify_glv etc. under BPPP_WNAF=0, verify_noglv etc. under BPPP_GLV=0; "
+                    "circuit_ac / circuit_reciprocal: one prove; wire: pack_batch + fast "
+                    "verify; pippenger: one MSM)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
@@ -1568,8 +1911,7 @@ def main() -> int:
          flags=" ".join(_build.NVCC_FLAGS))
 
     if args.profile:
-        tag = args.path.partition("_")[2]
-        with switches(VARIANTS[tag] if tag else {}):
+        with switches(VARIANTS.get(args.path.partition("_")[2], {})):
             phase_profile(dev, args.path)
         print(smi, flush=True)
         return 0
@@ -1579,21 +1921,53 @@ def main() -> int:
         print(smi, flush=True)
         return 0
 
-    by_path, shapes = {}, new_shape_log()
+    by_path, shapes, walls = {}, new_shape_log(), {}
+    t0 = time.time()
+
+    def wall(phase):
+        nonlocal t0
+        torch.cuda.synchronize()
+        walls[phase] = time.time() - t0
+        t0 = time.time()
+
     with recording_shapes(shapes, "verify"):
         by_path["verify"], ctx = phase_verify(dev)
+    wall("verify")
     with recording_shapes(shapes, "mirror"):
         by_path["mirror"] = phase_mirror(dev, ctx)
+    wall("mirror")
     with recording_shapes(shapes, "prove"):
         by_path["prove"] = phase_prove(dev, ctx)
+    wall("prove")
     with recording_shapes(shapes, "variants"):
         by_path.update(phase_variants(dev, ctx))
+    wall("variants")
     with recording_shapes(shapes, "wnla"):
         wnla, wnla_builds = phase_wnla(dev)
         by_path.update(wnla)
+    wall("wnla")
+    with recording_shapes(shapes, "circuit"):
+        circuit, circuit_builds = phase_circuit(dev)
+        by_path.update(circuit)
+    wall("circuit")
+    with recording_shapes(shapes, "wire"):
+        by_path["wire"] = phase_wire(dev, ctx)
+    wall("wire")
+    with recording_shapes(shapes, "entry"):
+        by_path["entry"], entry_builds = phase_entry(dev, ctx)
+    wall("entry")
+    with recording_shapes(shapes, "pippenger"):
+        pip_launches, shapes["timed_calls"] = phase_pippenger(dev)
+        by_path.update(pip_launches)
+    wall("pippenger")
     counted = {name: by_path[COUNTED_ON.get(name, "verify")][name] for name in REPLACES}
     shapes["table_builds"] = ctx["table_builds"] + wnla_builds
+    shapes["table_builds"] += circuit_builds + entry_builds
     rows = {r["name"]: r for r in phase_kernels(dev, ctx["device_obj"].tables, counted, shapes)}
+    wall("kernels")
+    emit("pippenger_device", note="hand-written kernels' device ms per call, in the kernels "
+         "phase's profiler session", calls=shapes["timed_calls"])
+    emit("walls", seconds=walls, build_seconds=info["seconds"])
     kernels = []
     for name, (source, replaces) in REPLACES.items():
         r = rows[MAIN_ROW[name]]

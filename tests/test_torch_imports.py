@@ -43,7 +43,10 @@ def test_module_imports_no_jax_and_nothing_of_the_jax_package(path):
 def test_every_port_module_is_walked():
     rel = {os.path.relpath(p, ROOT) for p in _sources()}
     for must in ("chip_smoke.py", "bppp_tpu_torch/ops/field.py", "bppp_tpu_torch/ops/_build.py",
-                 "bppp_tpu_torch/protocol/u64.py", "bppp_tpu_torch/oracle/merlin.py"):
+                 "bppp_tpu_torch/protocol/u64.py", "bppp_tpu_torch/oracle/merlin.py",
+                 "bppp_tpu_torch/native/__init__.py", "bppp_tpu_torch/entry.py",
+                 "bppp_tpu_torch/ops/pippenger.py", "bppp_tpu_torch/protocol/convert.py",
+                 "bppp_tpu_torch/models/__init__.py"):
         assert must in rel
 
 
