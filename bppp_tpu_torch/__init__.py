@@ -10,14 +10,17 @@ JAX package, so the counterpart of a module is found by its path:
   * WNLA, circuit, reciprocal, u64 verifiers          -> bppp_tpu_torch.protocol
   * ready-made instances                              -> bppp_tpu_torch.models
   * wire blobs in, the C++ host engine's bindings     -> bppp_tpu_torch.native
-  * the single-card entry hook                        -> bppp_tpu_torch.entry
+  * dp / tp / sp scale-out on torch.distributed         -> bppp_tpu_torch.parallel
+  * the entry hook and its multi-rank dry run          -> bppp_tpu_torch.entry
   * pure-Python host oracle (cross-check, fixtures)   -> bppp_tpu_torch.oracle
 
-Ported so far: everything but the scale-out layer (`parallel/`): the u64
-range proof (prover, both verifiers), the standalone WNLA and arithmetic
-circuit, Pippenger, the wire packer and the entry hook. Entry points run
-on the GPU unless the caller passes `device="cpu"`; on CPU tensors the
-kernels' plain PyTorch versions run.
+Everything the JAX package does is ported but its TPU-only `utils/aot.py`
+and its own `tools/`: the u64 range proof (prover, both verifiers), the
+standalone WNLA and arithmetic circuit, Pippenger, the wire packer, the
+entry hook and `dryrun_multichip`, and `parallel/` (one process per rank;
+gloo where ranks share a card). Entry points run on the GPU unless the
+caller passes `device="cpu"`; on CPU tensors the kernels' plain PyTorch
+versions run.
 The package imports torch and numpy, never jax, and nothing of `bppp_tpu`.
 """
 

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases, needs one card
     python3 chip_smoke.py --kernels-only
+    python3 chip_smoke.py --parallel-only   # the build, the verify phase and the parallel phase
     python3 chip_smoke.py --profile [--path verify|mirror|prove|verify_glv|...|circuit_ac|
                                      circuit_reciprocal|wire|pippenger]
                                      # where one batch of that path spends its time
@@ -48,6 +49,15 @@ and drives the port's paths at a batch of 1024 u64 range proofs:
           every lane, both routes timed in turns (their device times in the
           kernels phase's profiler session, a `pippenger_device` line); K7
           (incomplete adds) never launched by Pippenger.
+  parallel  the scale-out layer (`bppp_tpu_torch/parallel/`) at world size 1
+          over NCCL in this process, then as four ranks sharing the card over
+          gloo (NCCL refuses two ranks on one card): dp, the verify batch cut
+          by `shard_batch`, the verify phase's mask; tp, `msm_sharded` at 48
+          and 128 points with an equal-partials and an identity-partial lane,
+          `curve.msm`'s points; sp, `prove_sharded` on WNLA-64, the
+          single-card prover's bytes on every lane (and the oracle's on the
+          distinct ones), the mirror verifier on them; per rank and part the
+          launches, ms and collectives; then `dryrun_multichip(4)`.
 
 For each path it checks that every kernel of that path was launched and
 that no plain version was. The kernel comparison comes after the paths,
@@ -82,13 +92,15 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bppp_tpu_torch import native
-from bppp_tpu_torch.entry import entry
+from bppp_tpu_torch.entry import dryrun_multichip, entry
 from bppp_tpu_torch.models import circuit_fixture, u64_fixture, u64_prove_batch, wnla_fixture
 from bppp_tpu_torch.ops import _build
 from bppp_tpu_torch.ops import cuda_curve, cuda_fixed_base, cuda_keccak, cuda_ladder, cuda_msm
@@ -100,7 +112,12 @@ from bppp_tpu_torch.oracle import curve as oc
 from bppp_tpu_torch.oracle.field import N as N_INT
 from bppp_tpu_torch.oracle.field import P as P_INT
 from bppp_tpu_torch.oracle.merlin import Transcript as HostTranscript
+from bppp_tpu_torch.parallel import multihost
+from bppp_tpu_torch.parallel.mesh import batch_slice, make_mesh, map_tensors, msm_sharded, shard_batch
+from bppp_tpu_torch.parallel.wnla_shard import _sharded_rounds, prove_sharded
 from bppp_tpu_torch.protocol import convert as cv
+from bppp_tpu_torch.protocol.u64 import U64RangeProofDevice, build_u64_tables
+from bppp_tpu_torch.protocol.wnla import WNLADevice
 from bppp_tpu_torch.transcript.device import Transcript
 from bppp_tpu_torch.utils.rng import ReplayRng
 
@@ -1232,7 +1249,7 @@ def phase_verify(dev):
         tables=device_obj.tables,
     )
     cb_big = tile(cb)
-    pb_big = _map_tensors(pb, tile)
+    pb_big = map_tensors(pb, tile)
     ok_big = run_verify(big_obj, cb_big, pb_big, fast=True)
     torch.cuda.synchronize()
     big_wrong = int((ok_big.cpu() != want.repeat(reps)).sum())
@@ -1522,7 +1539,7 @@ def phase_wnla(dev):
 def circuit_bytes_equal(pb, want, n: int) -> list:
     """Names of the fields of two CircuitProofBytes whose lanes differ, `want`
     holding the n distinct lanes that `pb`'s lanes tile."""
-    tiled = _map_tensors(want, lambda a: a.repeat((1,) * (a.ndim - 1) + (-(-BATCH // n),))
+    tiled = map_tensors(want, lambda a: a.repeat((1,) * (a.ndim - 1) + (-(-BATCH // n),))
                          [..., :BATCH])
     return proof_lanes_equal(pb, tiled, BATCH)
 
@@ -1764,6 +1781,285 @@ def phase_pippenger(dev):
     return {"pippenger": counted}, timed
 
 
+# -- phase: parallel ----------------------------------------------------------------------
+
+PARALLEL_RANKS = 4  # ranks that share the one card in the second run
+TP_POINTS = (48, 128)  # the u64 [h_vec | g_vec], WNLA-64's
+SP_SIZE = 64
+# what the parts of the parallel phase launch on every rank: dp builds its
+# tables and verifies; tp runs the local MSMs (K6 + K7) and the complete
+# combine (K5a); sp the whole prover. Where the world is one rank, tp's one
+# partial needs no add, and sp's tail (2/2 there, 4/4 over four ranks)
+# folds no more, so no Straus MSM doubles (K5b).
+PATH_KERNELS["parallel_dp"] = PATH_KERNELS["verify"]
+PATH_KERNELS["parallel_tp"] = ("scalar_mul", "tree_sum", "pt_add")
+PATH_KERNELS["parallel_sp"] = ("f1600", "pow_const", "msm_small_wnaf", "pt_add", "pt_double",
+                               "scalar_mul", "tree_sum")
+SHARDED_ONLY = {"parallel_tp": ("pt_add",), "parallel_sp": ("pt_double",)}
+PARALLEL_REPS = {"dp": 3, "tp": 5, "sp": 2}
+SHAPE_KEYS = ("scalar_mul", "tree_sum", "pt_add", "f1600", "pt_double")
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """For the block, count every `all_gather` and `all_reduce` of
+    torch.distributed: calls, the bytes this rank puts in, and the seconds
+    each takes with the card synchronised before and after it, which
+    include this rank's wait for the others to arrive (so the block's
+    other timings are not taken under this)."""
+    stats = {"all_gather": [0, 0, 0.0], "all_reduce": [0, 0, 0.0]}
+    orig = dist.all_gather, dist.all_reduce
+
+    def counted(name, fn, which):
+        def call(*args, **kw):
+            t = args[which]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            s = stats[name]
+            s[0] += 1
+            s[1] += t.numel() * t.element_size()
+            s[2] += time.perf_counter() - t0
+            return out
+        return call
+
+    dist.all_gather = counted("all_gather", orig[0], 1)
+    dist.all_reduce = counted("all_reduce", orig[1], 0)
+    try:
+        yield stats
+    finally:
+        dist.all_gather, dist.all_reduce = orig
+
+
+def collective_summary(stats) -> dict:
+    calls = sum(s[0] for s in stats.values())
+    nbytes = sum(s[1] for s in stats.values())
+    return dict(collectives=calls, bytes=nbytes, bytes_per_collective=nbytes / calls if calls else 0,
+                seconds=sum(s[2] for s in stats.values()),
+                by_kind={k: dict(calls=s[0], bytes=s[1], seconds=s[2]) for k, s in stats.items()})
+
+
+def parallel_inputs(ctx):
+    """Every part's inputs as CPU tensors, built once here and handed to the
+    ranks: dp the verify phase's batch and instance; tp the u64 and WNLA-64
+    [h_vec | g_vec] at full width with random scalars, lane 1 holding its
+    first block's points and scalars again as its second block (equal
+    partials) and lane 2 zero scalars in its third block (an identity
+    partial), blocks as four ranks cut them; sp the WNLA-64 instance."""
+    cpu = lambda t: map_tensors(t, lambda a: a.cpu())
+    d = ctx["device_obj"]
+    fx = wnla_fixture(f"{SEED} parallel", SP_SIZE, SP_SIZE, BATCH, device="cpu", tables="never")
+    gen = np.random.default_rng(11)
+    tp = []
+    for vecs in ((d.h_vec, d.g_vec), (fx.dev.h_vec, fx.dev.g_vec)):
+        pts = dc.PointJ(*(torch.cat([h, g], dim=1).cpu().contiguous() for h, g in zip(*vecs)))
+        L = pts.x.shape[1]
+        sc = rand_scalars(gen, (L, BATCH), N_INT, "cpu")
+        per = L // PARALLEL_RANKS
+        for a in (*pts, sc):
+            a[:, per : 2 * per, 1] = a[:, :per, 1]
+        sc[:, 2 * per : 3 * per, 2] = 0
+        tp.append((pts, sc))
+    w = fx.dev
+    return dict(
+        dp=dict(gens=cpu((d.g, d.g_vec, d.h_vec)), cb=ctx["cb"].cpu(), pb=cpu(ctx["pb"])),
+        tp=tp,
+        sp=(w.g, w.g_vec, w.h_vec, w.c, w.rho, w.mu, fx.com, fx.label, fx.l, fx.n),
+        sp_lanes=[ln["proof"] for ln in fx.lanes],
+    )
+
+
+def run_parallel_parts(inp) -> dict:
+    """dp, tp and sp on meshes over the whole initialized world, on this
+    rank's card: per part its results (CPU), its launches and plain calls
+    on the checked call (counts set to 0 just before it), its collectives
+    there, and its ms per call by CUDA events over PARALLEL_REPS more
+    calls, which every rank starts together."""
+    out = {}
+
+    def part(name, run, timed):
+        reset_counts()
+        with counting_collectives() as stats:
+            res = run()
+            torch.cuda.synchronize()
+        launches, plain = read_counts()
+        dist.barrier()
+        ms = time_ms(timed, reps=PARALLEL_REPS[name], warm=0)
+        out[name] = dict(res=res, launches=dict(launches), plain_calls={k: n for k, n in plain.items() if n},
+                         ms=ms, **collective_summary(stats))
+
+    # dp: the batch cut across the ranks; each rank builds its tables
+    mesh = multihost.global_dp_mesh(device="cuda")
+    on_card = lambda t: map_tensors(t, lambda a: a.to(mesh.device))
+    dp = {}
+
+    def run_dp():
+        g, g_vec, h_vec = shard_batch(inp["dp"]["gens"], mesh)
+        lane0 = lambda p: dc.PointJ(*(a[..., 0] for a in p))
+        dp["obj"] = U64RangeProofDevice(g=g, g_vec=g_vec, h_vec=h_vec,
+                                        tables=build_u64_tables(lane0(g), lane0(g_vec), lane0(h_vec)))
+        dp["cb"], dp["pb"] = shard_batch((inp["dp"]["cb"], inp["dp"]["pb"]), mesh)
+        return dict(mask=run_verify(dp["obj"], dp["cb"], dp["pb"], fast=True).cpu(),
+                    first_lane=batch_slice(mesh, BATCH).start)
+
+    part("dp", run_dp, lambda: run_verify(dp["obj"], dp["cb"], dp["pb"], fast=True))
+
+    # tp: the global points and scalars on every rank's card, blocks cut there
+    tp_mesh = make_mesh(axis="tp", device="cuda")
+    tp = on_card(inp["tp"])
+    part("tp", lambda: [dc.compress(msm_sharded(p, s, tp_mesh)).cpu() for p, s in tp],
+         lambda: [msm_sharded(p, s, tp_mesh) for p, s in tp])
+
+    # sp: the global WNLA-64 instance on every rank's card
+    sp_mesh = make_mesh(axis="sp", device="cuda")
+    sp = on_card(inp["sp"])
+    part("sp", lambda: map_tensors(cv.wnla_dev_to_bytes(prove_sharded(sp_mesh, *sp)), lambda a: a.cpu()),
+         lambda: prove_sharded(sp_mesh, *sp))
+    return out
+
+
+def _parallel_rank(rank, rdzv, workdir):
+    """One of the ranks that share the card: the parts over gloo on the
+    inputs the parent saved, the results and the shapes the kernels were
+    given saved for the parent."""
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    multihost.initialize(rdzv, PARALLEL_RANKS, rank, backend="gloo", device="cuda")
+    try:
+        log = new_shape_log()
+        with recording_shapes(log, "parallel"):
+            res = run_parallel_parts(inp)
+        res["shapes"] = {k: log[k] for k in SHAPE_KEYS}
+        torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_faults(world: int, ranks: list, want: dict) -> dict:
+    """What is wrong with the ranks' results, by part: results unlike
+    `want`, kernels of the part never launched on a rank, plain calls."""
+    faults = {}
+    masks = torch.cat([r["dp"]["res"]["mask"] for r in sorted(ranks, key=lambda r: r["dp"]["res"]["first_lane"])])
+    if not torch.equal(masks, want["mask"]):
+        faults["dp"] = [f"mask differs at lanes {torch.nonzero(masks != want['mask']).flatten().tolist()}"]
+    for i, r in enumerate(ranks):
+        for L, got, ref in zip(TP_POINTS, r["tp"]["res"], want["tp"]):
+            bad = torch.nonzero((got != ref).any(dim=0)).flatten().tolist()
+            if bad:
+                faults.setdefault("tp", []).append(f"rank {i}, L = {L}: lanes {bad[:8]}")
+        bad = proof_lanes_equal(r["sp"]["res"], want["sp"], BATCH)
+        if bad:
+            faults.setdefault("sp", []).append(f"rank {i}: {bad} differ from the single-card prover")
+        for part in ("dp", "tp", "sp"):
+            path = f"parallel_{part}"
+            need = [k for k in PATH_KERNELS[path] if world > 1 or k not in SHARDED_ONLY.get(path, ())]
+            faults.setdefault(part, []).extend(
+                count_faults(f"{path} (rank {i} of {world})", r[part]["launches"],
+                             [k for k in need if r[part]["launches"][k] == 0], r[part]["plain_calls"]))
+    return {k: v for k, v in faults.items() if v}
+
+
+def phase_parallel(dev, ctx, shapes):
+    """The scale-out layer on the card: (a) world size 1 over NCCL in this
+    process, (b) PARALLEL_RANKS ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one card), spawned after the build; in each the
+    parts dp, tp and sp at full width, held against the same work without
+    `parallel/` (the verify phase's mask, `curve.msm`, the single-card
+    `WNLADevice.prove`, whose bytes the oracle's on the distinct lanes);
+    then `dryrun_multichip(PARALLEL_RANKS, backend="gloo")`. -> {path:
+    launches summed over the ranks of (b)}."""
+    inp = parallel_inputs(ctx)
+    on_card = lambda t: map_tensors(t, lambda a: a.to(dev))
+
+    # the same work without parallel/, in this process
+    tp_in = on_card(inp["tp"])
+    tp_ref = [dc.compress(dc.msm(p, s)).cpu() for p, s in tp_in]
+    sp_in = on_card(inp["sp"])
+    wnla = WNLADevice(*sp_in[:6])
+    com, label, l, n = sp_in[6:]
+    ref = cv.wnla_dev_to_bytes(wnla.prove(com, Transcript(label, batch=(BATCH,), device=dev), l, n))
+    want = dict(mask=ctx["fast_mask"], tp=tp_ref, sp=map_tensors(ref, lambda a: a.cpu()))
+    oracle_bad = proof_lanes_equal(ref, cv.wnla_proofs_to_bytes(inp["sp_lanes"], device="cpu"),
+                                   len(inp["sp_lanes"]))
+    plain_ms = dict(
+        dp=time_ms(lambda: run_verify(ctx["device_obj"], ctx["cb"], ctx["pb"], fast=True), reps=3),
+        tp=time_ms(lambda: [dc.msm(p, s) for p, s in tp_in], reps=5),
+        sp=time_ms(lambda: wnla.prove(com, Transcript(label, batch=(BATCH,), device=dev), l, n),
+                   reps=2, warm=0),
+    )
+
+    # (a) world size 1, NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize(f"file://{tmp}/rendezvous", 1, 0, backend="nccl", device=dev)
+        try:
+            with recording_shapes(shapes, "parallel"):
+                one = run_parallel_parts(inp)
+        finally:
+            dist.destroy_process_group()
+    # the mirror verifier on the sharded proof: honest, and one WNLA scalar lane tampered
+    pb = on_card(one["sp"]["res"])
+    bad = pb.l.clone()
+    bad[0, 0, TAMPERED] = (bad[0, 0, TAMPERED] + 1) % (1 << 16)
+    verify = lambda p: wnla.verify(com, Transcript(label, batch=(BATCH,), device=dev), p).cpu()
+    sp_masks = dict(honest=verify(pb), tampered=verify(pb._replace(l=bad)))
+    expect = dict(honest=torch.ones(BATCH, dtype=torch.bool), tampered=torch.arange(BATCH) != TAMPERED)
+    sp_wrong = {k: torch.nonzero(m != expect[k]).flatten().tolist() for k, m in sp_masks.items()}
+
+    # (b) four ranks on the one card, gloo
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(inp, os.path.join(tmp, "inputs.pt"))
+        torch.multiprocessing.spawn(_parallel_rank, nprocs=PARALLEL_RANKS, join=True,
+                                    args=(f"file://{tmp}/rendezvous", tmp))
+        four = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                for r in range(PARALLEL_RANKS)]
+    spawn_s = time.time() - t0
+    for r in four:
+        for k in SHAPE_KEYS:
+            shapes[k] |= r["shapes"][k]
+
+    runs = {1: [one], PARALLEL_RANKS: four}
+    faults = {w: parallel_faults(w, rs, want) for w, rs in runs.items()}
+    if oracle_bad:
+        faults[1].setdefault("sp", []).append(f"the single-card prover's {oracle_bad} differ from the oracle's")
+    if any(sp_wrong.values()):
+        faults[1].setdefault("sp", []).append(f"mirror verify of the sharded proof wrong at {sp_wrong}")
+    for w, rs in runs.items():
+        for part in ("dp", "tp", "sp"):
+            ms = [r[part]["ms"] for r in rs]
+            line = dict(
+                ok=not faults[w].get(part), part=part, world=w,
+                backend="nccl" if w == 1 else "gloo", batch=BATCH, faults=faults[w].get(part, []),
+                ms_per_call_by_rank=ms, ms_per_call_slowest_rank=max(ms), plain_ms_per_call=plain_ms[part],
+                launches_by_rank=[r[part]["launches"] for r in rs],
+                collectives_by_rank=[{k: r[part][k] for k in ("collectives", "bytes", "bytes_per_collective",
+                                                              "seconds", "by_kind")} for r in rs],
+            )
+            if part == "dp":
+                line.update(lanes_per_rank=BATCH // w, verifies_per_s=BATCH / max(ms) * 1e3,
+                            verifies_per_s_without_parallel=BATCH / plain_ms["dp"] * 1e3)
+            if part == "tp":
+                line.update(points=list(TP_POINTS), edge_lanes=dict(equal_partials=1, identity_partial=2))
+            if part == "sp":
+                line.update(size=SP_SIZE, rounds=int(rs[0]["sp"]["res"].x.shape[1]),
+                            sharded_rounds=_sharded_rounds(SP_SIZE, SP_SIZE, w))
+                if w == 1:
+                    line.update(mirror_verify_wrong_lanes=sp_wrong)
+            if w > 1:
+                line.update(spawn_seconds=spawn_s)
+            emit("parallel", **line)
+
+    t0 = time.time()
+    dryrun_multichip(PARALLEL_RANKS, backend="gloo")
+    emit("parallel", ok=True, part="dryrun_multichip", world=PARALLEL_RANKS, backend="gloo",
+         seconds=time.time() - t0)
+    bad = {w: f for w, f in faults.items() if f}
+    if bad:
+        raise SystemExit(f"parallel: {bad}")
+    return {f"parallel_{part}": {k: sum(r[part]["launches"][k] for r in four) for k in four[0][part]["launches"]}
+            for part in ("dp", "tp", "sp")}
+
+
 HAND_WRITTEN = ("f1600_kernel", "f1600_lane_kernel", "pow_kernel", "pt_add_kernel", "pt_double_chain_kernel",
                 "affine_rows_kernel",
                 "fixed_msm_kernel", "fixed_msm_join_kernel", "msm_small_wnaf_kernel",
@@ -1846,12 +2142,6 @@ def phase_profile(dev, path: str):
     )
 
 
-def _map_tensors(obj, fn):
-    if isinstance(obj, torch.Tensor):
-        return fn(obj)
-    return type(obj)(*(_map_tensors(v, fn) for v in obj))
-
-
 # -- main --------------------------------------------------------------------------------
 
 REPLACES = {
@@ -1890,7 +2180,11 @@ def main() -> int:
                     "the shapes the paths give K3, K5a, K6 and K7 are recorded only by a full run)")
     ap.add_argument("--profile", action="store_true",
                     help="profile one batch of --path instead of the smoke phases")
-    ap.add_argument("--path", choices=[p for p in PATH_KERNELS if not p.startswith(("wnla", "entry"))],
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="stop after the build, the verify phase (whose batch dp takes) and the "
+                    "parallel phase")
+    ap.add_argument("--path", choices=[p for p in PATH_KERNELS
+                                       if not p.startswith(("wnla", "entry", "parallel"))],
                     default="verify", help="the path --profile runs (default: verify; "
                     "verify_glv etc. under BPPP_WNAF=0, verify_noglv etc. under BPPP_GLV=0; "
                     "circuit_ac / circuit_reciprocal: one prove; wire: pack_batch + fast "
@@ -1918,6 +2212,13 @@ def main() -> int:
     if args.kernels_only:
         public, device_obj, _ = u64_fixture(SEED, 4, device=dev, tables="auto")
         phase_kernels(dev, device_obj.tables)
+        print(smi, flush=True)
+        return 0
+    if args.parallel_only:
+        _, ctx = phase_verify(dev)
+        t0 = time.time()
+        phase_parallel(dev, ctx, new_shape_log())
+        emit("walls", seconds={"parallel": time.time() - t0}, build_seconds=info["seconds"])
         print(smi, flush=True)
         return 0
 
@@ -1960,6 +2261,8 @@ def main() -> int:
         pip_launches, shapes["timed_calls"] = phase_pippenger(dev)
         by_path.update(pip_launches)
     wall("pippenger")
+    by_path.update(phase_parallel(dev, ctx, shapes))
+    wall("parallel")
     counted = {name: by_path[COUNTED_ON.get(name, "verify")][name] for name in REPLACES}
     shapes["table_builds"] = ctx["table_builds"] + wnla_builds
     shapes["table_builds"] += circuit_builds + entry_builds

@@ -46,7 +46,8 @@ def test_every_port_module_is_walked():
                  "bppp_tpu_torch/protocol/u64.py", "bppp_tpu_torch/oracle/merlin.py",
                  "bppp_tpu_torch/native/__init__.py", "bppp_tpu_torch/entry.py",
                  "bppp_tpu_torch/ops/pippenger.py", "bppp_tpu_torch/protocol/convert.py",
-                 "bppp_tpu_torch/models/__init__.py"):
+                 "bppp_tpu_torch/models/__init__.py", "bppp_tpu_torch/parallel/mesh.py",
+                 "bppp_tpu_torch/parallel/multihost.py", "bppp_tpu_torch/parallel/wnla_shard.py"):
         assert must in rel
 
 
@@ -154,6 +155,22 @@ def test_chip_smoke_holds_every_point_count_of_k8_and_k9(kernel):
         assert cs.PATH_BANNED[f"{base}_{tag}"] == ("msm_small_wnaf",)
     assert cs.COUNTED_ON[kernel] == f"verify_{tag}"
     assert cs.MAIN_ROW[kernel] == f"{kernel}[D=3]"
+
+
+@pytest.mark.parametrize("part", ["dp", "tp", "sp"])
+def test_chip_smoke_counts_each_parallel_part_as_a_path(part):
+    """The parallel phase drives dp, tp and sp as paths of their own, counted
+    on every rank and reported in the kernels line; tp and sp combine the
+    ranks' partials with the complete add (K5a), and what a world of one
+    rank need not launch is a kernel of the path."""
+    import inspect
+
+    cs = _chip_smoke()
+    path = f"parallel_{part}"
+    kernels = cs.PATH_KERNELS[path]
+    assert set(cs.SHARDED_ONLY.get(path, ())) <= set(kernels)
+    assert part == "dp" or "pt_add" in kernels
+    assert "by_path.update(phase_parallel(dev, ctx, shapes))" in inspect.getsource(cs.main)
 
 
 @pytest.mark.parametrize("sz", [16, 32, 64])
