@@ -1,0 +1,8 @@
+"""The share of the traced window of the verify path in which no operation ran
+on the card, in %."""
+
+from bench_port.harness.readers import device_idle_share
+
+
+def read(m):
+    return device_idle_share(m, "verify")

@@ -1,0 +1,13 @@
+"""Tests of the benchmark harness. CPU tests run anywhere; tests marked
+`cuda` need an NVIDIA card and skip without one (decided inside each test)."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA card; skips without one")
